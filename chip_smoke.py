@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's halo-exchange main path on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU: the halo
+exchange (heat3d) and llama3-8b serving.
 
     python3 chip_smoke.py
 
@@ -24,6 +25,23 @@ prints no result.  Every phase that fails ends the run with a non-zero exit.
    launched.  The cycles are checked against the same cycles run through
    packer ``slice`` with ``stencil27_ref`` on the card, and ``torch.profiler``
    shows where each strategy's cycle goes (device time by kernel, idle share).
+A. ``flash_attention`` against its plain version on the card at the shapes
+   the serving path gives it (llama3-8b prefill, causal, bf16, S in
+   {8, 128, 1000, 2048}; an MHA head_dim-64 case causal and not; an f32
+   case; a strided q), timed at S = 2048 beside the plain version and
+   ``F.scaled_dot_product_attention`` (the library yardstick, never on the
+   path).
+B. Serving llama3-8b at full width and depth (random bf16 weights from
+   ``torch.Generator`` seed 0, about 16.1 GB on the card) through
+   ``ServingEngine(max_slots=4, max_len=2048)``: 8 requests of 5-2000
+   prompt tokens, 16 new tokens each.  Launch counts are zeroed just
+   before and read just after: ``flash_attention`` must launch 32 times
+   per prefill, and the engine must init one plan per prefill bucket plus
+   one decode plan.  The tokens are held against the same engine with the
+   plain attention injected: equal, or, where they first differ, a near
+   tie in the plain model's logits.  Prints prefill ms per bucket, decode
+   ms per step, tokens per second, and the device idle share of a prefill
+   and of a decode step (``torch.profiler``).
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -43,6 +61,8 @@ ROOT = pathlib.Path(__file__).resolve().parent
 
 #: H100 SXM data-sheet HBM3 rate, the bytes bound of every kernel here
 HBM_BYTES_PER_S = 3.35e12
+#: H100 SXM data-sheet dense bf16 tensor-core rate, the operations bound
+BF16_FLOP_PER_S = 989e12
 MESH = ((4, 2), ("pz", "py"))
 GLOBAL_INTERIOR = (1024, 1024, 512)
 #: stated tolerances.  Pack/unpack are elementwise converts: exact.  The
@@ -51,6 +71,11 @@ GLOBAL_INTERIOR = (1024, 1024, 512)
 #: output one bf16 ulp (rtol=2^-7).
 STENCIL_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2.0 ** -7, 1e-6)}
 HEAT_CYCLES, HEAT_REPEATS, VERIFY_CYCLES = 20, 3, 3
+#: flash attention against its plain version, as tests/kernels/test_flash.py:
+#: bf16 output rtol=atol=2e-2, f32 rtol=atol=2e-5
+FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+SERVE_LENGTHS = (5, 12, 100, 200, 500, 900, 1500, 2000)
+SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 2048, 16
 
 
 def fail(msg: str) -> None:
@@ -89,6 +114,168 @@ def time_ms(torch, fn, *, reps: int = 7, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(torch, fn, *, reps: int = 3) -> float:
+    """Median host-clock time of ``fn`` ending in a device synchronize,
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def plain_logits_at(torch, model, params, prompt, prefix, max_len):
+    """The logits that follow ``prompt + prefix`` in ``model``: a bucketed
+    prefill of the prompt, then one decode step per prefix token (batch 1)."""
+    from repro_torch.serving.engine import _next_pow2
+
+    dev = model.device
+    bucket = min(_next_pow2(len(prompt)), max_len)
+    toks = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+    toks[0, :len(prompt)] = torch.as_tensor(prompt, device=dev)
+    true_len = torch.full((1,), len(prompt), dtype=torch.int32, device=dev)
+    logits, cache = model.prefill(params, {"tokens": toks}, model.init_cache(1, max_len),
+                                  true_len=true_len)
+    for t in prefix:
+        logits, cache = model.decode_step(params, torch.tensor([[t]], device=dev), cache)
+    return logits[0, -1].float()
+
+
+def serve_llama(torch, dev, kernels: dict) -> dict:
+    """Phase B: llama3-8b through the serving engine, flash kernel on the
+    path, held against the same engine with the plain attention."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiling import device_breakdown
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import attention_plain
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("llama3-8b")
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [params["embed"], params["lm_head"], *params["norm_f"].values()]
+    leaves += [t for lp in params["layers"] for g in lp.values() for t in g.values()]
+    param_gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    print(f"llama3-8b: {cfg.n_layers} layers, d_model {cfg.d_model}, {param_gb:.3f} GB of "
+          f"{params['embed'].dtype} parameters made on the card in {init_s:.1f} s", flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in SERVE_LENGTHS]
+    # warm-up outside the counted run (cuBLAS handles, the kernel library)
+    model.prefill(params, {"tokens": torch.zeros((1, 8), dtype=torch.long, device=dev)},
+                  model.init_cache(1, 8))
+    torch.cuda.synchronize()
+
+    def serve(m):
+        engine = ServingEngine(m, params, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+        uids = [engine.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+        t0 = time.perf_counter()
+        out = engine.run()
+        torch.cuda.synchronize()
+        return engine, [out[u] for u in uids], time.perf_counter() - t0
+
+    _build.reset_launches()
+    engine, tokens, serve_s = serve(model)
+    launches = dict(_build.LAUNCHES)
+    st = engine.stats
+    buckets = sorted({engine._prefill_bucket(len(p)) for p in prompts})
+    n_tokens = sum(len(t) for t in tokens)
+    print(f"serve llama3-8b: {st.prefills} prefills (buckets {buckets}), {st.decode_steps} decode "
+          f"steps, {n_tokens} tokens in {serve_s:.3f} s = {n_tokens / serve_s:.1f} tok/s; plans "
+          f"{st.plan_inits} inits / {st.plan_hits} hits; launches {json.dumps(launches)}",
+          flush=True)
+    if st.prefills != len(prompts) or any(len(t) != SERVE_NEW for t in tokens):
+        fail(f"served {st.prefills} prefills, token counts {[len(t) for t in tokens]}")
+    if launches.get("flash_attention", 0) != cfg.n_layers * st.prefills:
+        fail(f"flash_attention launched {launches.get('flash_attention', 0)} times for "
+             f"{st.prefills} prefills of {cfg.n_layers} layers")
+    if st.plan_inits != len(buckets) + 1:
+        fail(f"{st.plan_inits} plan inits for {len(buckets)} prefill buckets + 1 decode plan")
+    kernels["flash_attention"]["launches"] = launches["flash_attention"]
+
+    plain_model = build_model(cfg, dev, attention=attention_plain)
+    plain_engine, plain_tokens, plain_s = serve(plain_model)
+    if _build.LAUNCHES["flash_attention"] != launches["flash_attention"]:
+        fail("the plain-attention run launched the flash kernel")
+    equal, ties = 0, []
+    for prompt, got, want in zip(prompts, tokens, plain_tokens):
+        if got == want:
+            equal += 1
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        logits = plain_logits_at(torch, plain_model, params, prompt, got[:i], SERVE_MAX_LEN)
+        la, lb = logits[got[i]].item(), logits[want[i]].item()
+        gap, tol = abs(la - lb), FLASH_TOL["bfloat16"] * (1 + max(abs(la), abs(lb)))
+        ties.append(dict(prompt_len=len(prompt), step=i, kernel_token=got[i], plain_token=want[i],
+                         logit_gap=gap, tol=tol))
+        if gap > tol:
+            fail(f"prompt of {len(prompt)}: tokens differ at step {i} ({got[i]} vs {want[i]}) "
+                 f"and the plain logits are {gap} apart (tol {tol}): not a near tie")
+    print(f"tokens against the plain-attention engine ({plain_s:.3f} s): {equal}/{len(prompts)} "
+          f"requests equal; near ties at the first difference: {json.dumps(ties)}", flush=True)
+
+    prefill_ms, prefill_logit_err = {}, {}
+    for bucket in buckets:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, bucket)), device=dev)
+        cache1 = model.init_cache(1, SERVE_MAX_LEN)
+        true_len = torch.full((1,), max(1, bucket - 3), dtype=torch.int32, device=dev)
+        prefill_ms[bucket] = host_ms(torch, lambda: model.prefill(
+            params, {"tokens": toks}, cache1, true_len=true_len))
+        # the same prefill with the plain attention: how far 32 layers carry
+        # the kernel's bf16 rounding differences into the logits
+        got = model.prefill(params, {"tokens": toks}, cache1, true_len=true_len)[0].float()
+        want = plain_model.prefill(params, {"tokens": toks}, cache1, true_len=true_len)[0].float()
+        if not torch.isfinite(got).all():
+            fail(f"prefill at bucket {bucket}: non-finite logits")
+        prefill_logit_err[bucket] = (got - want).abs().max().item()
+    print(f"prefill ms by bucket {json.dumps(prefill_ms)}; max |logit kernel - plain| "
+          f"{json.dumps(prefill_logit_err)}", flush=True)
+    cache = engine._cache
+    step_tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
+    decode_ms = host_ms(torch, lambda: model.decode_step(params, step_tok, cache), reps=7)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, SERVE_MAX_LEN)), device=dev)
+    prefill_trace = device_breakdown(lambda: model.prefill(
+        params, {"tokens": toks}, cache1, true_len=true_len), n_cycles=1)
+    decode_trace = device_breakdown(lambda: model.decode_step(params, step_tok, cache),
+                                    n_cycles=3)
+    # host cost of one eager op on the card (a small in-place add)
+    scratch = torch.zeros(1024, device=dev)
+    op_us = host_ms(torch, lambda: [scratch.add_(1.0) for _ in range(500)]) / 500 * 1e3
+    decode_launches = sum(k["launches_per_cycle"] for k in decode_trace["kernels"])
+    print(f"decode step: {decode_ms:.2f} ms, {decode_launches:g} device activities per step; "
+          f"one eager op costs {op_us:.1f} us of host time", flush=True)
+    for label, b in (("prefill 2048", prefill_trace), ("decode step", decode_trace)):
+        top = ", ".join(f"{short_kernel_name(k['name'])} x{k['launches_per_cycle']:g} "
+                        f"{k['us_per_cycle']:.0f}us" for k in b["kernels"][:5])
+        print(f"{label} breakdown: window {b['window_us_per_cycle']:.0f} us, device busy "
+              f"{b['busy_us_per_cycle']:.0f} us, idle share {b['idle_share']:.3f}; {top}",
+              flush=True)
+    out = dict(
+        model="llama3-8b", layers=cfg.n_layers, param_gb=param_gb, init_s=init_s,
+        slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN, prompt_lengths=list(SERVE_LENGTHS),
+        buckets=buckets, prefills=st.prefills, decode_steps=st.decode_steps,
+        plan_inits=st.plan_inits, plan_hits=st.plan_hits, launches=launches,
+        tokens=n_tokens, serve_s=serve_s, tokens_per_s=n_tokens / serve_s,
+        plain_serve_s=plain_s, equal_requests=equal, near_ties=ties,
+        prefill_ms=prefill_ms, prefill_logit_err=prefill_logit_err, decode_ms=decode_ms,
+        decode_device_activities=decode_launches, host_us_per_op=op_us,
+        prefill_idle_share=prefill_trace["idle_share"], decode_idle_share=decode_trace["idle_share"],
+        prefill_trace=prefill_trace, decode_trace=decode_trace,
+    )
+    print("serving:", json.dumps({k: v for k, v in out.items() if not k.endswith("_trace")}),
+          flush=True)
+    return out
 
 
 def main() -> int:
@@ -316,7 +503,7 @@ def main() -> int:
               f"collective_count={r.collective_count} launches/cycle={per_cycle[name]} "
               f"checksum={r.checksum!r} device={r.device}", flush=True)
     launches = dict(_build.LAUNCHES)
-    print("launches on the main path:", json.dumps(launches), flush=True)
+    print("launches on the heat3d path:", json.dumps(launches), flush=True)
     for kname in ("copy_convert", "gather_pack", "stencil27"):
         if launches.get(kname, 0) <= 0:
             fail(f"kernel {kname} was not launched on the main path")
@@ -358,6 +545,66 @@ def main() -> int:
         print(f"heat3d {name} breakdown: window {b['window_us_per_cycle']:.0f} us/cycle, "
               f"device busy {b['busy_us_per_cycle']:.0f} us, idle share {b['idle_share']:.3f}; "
               f"{top}", flush=True)
+
+    # -- A. flash_attention against its plain version ------------------------
+    del drv, plain, ref_x, interior, weights, update, dom, mesh
+    torch.cuda.empty_cache()
+    from repro_torch.kernels.flash_attention import attention_plain, flash_attention
+
+    gen = torch.Generator(dev).manual_seed(7)
+
+    def qkv(b, s, hq, hkv, d, dtype, strided=False):
+        q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+        return (q if strided else q.contiguous()), k, v
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"llama3-8b prefill S={s}", (1, s, 32, 8, 128), bf16, True, False)
+             for s in (8, 128, 1000, 2048)]
+    cases += [("MHA d=64 causal", (1, 512, 32, 32, 64), bf16, True, False),
+              ("MHA d=64 non-causal", (1, 512, 32, 32, 64), bf16, False, False),
+              ("GQA f32 causal", (1, 256, 32, 8, 128), f32, True, False),
+              ("strided q, ragged, non-causal", (2, 100, 4, 2, 64), bf16, False, True)]
+    worst = 0.0
+    for label, shape, dtype, causal, strided in cases:
+        q, k, v = qkv(*shape, dtype, strided)
+        got = flash_attention(q, k, v, causal=causal)
+        want = attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dtype)[6:]]
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.isfinite(got.float()).all() or not torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"flash_attention {label} q {tuple(q.shape)} {dtype}: max abs err {err}")
+        worst = max(worst, err)
+        print(f"flash_attention {label} q {tuple(q.shape)} kv {tuple(k.shape)} {str(dtype)[6:]}: "
+              f"max abs err {err} (tol {tol})", flush=True)
+    q, k, v = qkv(1, 2048, 32, 8, 128, bf16)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    torch.cuda.synchronize()
+    sdpa_err = (sdpa.transpose(1, 2).float() - attention_plain(q, k, v).float()).abs().max().item()
+    flops = 2 * q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] * q.shape[3]
+    nbytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
+    kernels["flash_attention"] = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash.py:127", max_abs_err=worst,
+        ms=time_ms(torch, lambda: flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(torch, lambda: attention_plain(q, k, v, causal=True)),
+        bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        library_max_abs_err=sdpa_err, flops=flops, flop_convention="2*B*Hq*Sq*Skv*D (causal)",
+        bytes=nbytes, shape=[list(q.shape), list(k.shape)],
+    )
+    print("flash_attention:", json.dumps(kernels["flash_attention"]), flush=True)
+    del q, k, v, qt, kt, vt, sdpa, got, want
+    torch.cuda.empty_cache()
+
+    # -- B. serving llama3-8b at full width: the second main path ------------
+    record["serving"] = serve_llama(torch, dev, kernels)
 
     # -- 5. results -----------------------------------------------------------
     record.update(

@@ -10,7 +10,9 @@ the step on those (``MPI_Start``), *wait* synchronizes the device
 started step as a CUDA graph is later work.
 
 A :class:`PlanCache` is the table of initialized requests; its counters
-let tests and benchmarks measure the amortization the paper reports.
+let tests and benchmarks measure the amortization the paper reports.  The
+serving engine keys its step plans with :meth:`PlanCache.key_for` (function
+identity + abstract arguments), as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -96,6 +98,15 @@ class PlanCache:
         self._lock = threading.Lock()
         self.stats = PlanStats()
 
+    def key_for(self, fn: Callable, args: Sequence[Any], extra: Hashable = ()) -> Hashable:
+        """The structural key of a step: ``fn``'s qualname and identity, the
+        shapes, dtypes and devices of the tensor arguments (with their
+        nesting), and ``extra``, as ``repro/core/plan.py``'s ``key_for``.
+        Arguments of one structure share a plan; a fresh closure per call
+        would miss every time."""
+        return (getattr(fn, "__qualname__", repr(fn)), id(getattr(fn, "__wrapped__", fn)),
+                _abstract(list(args)), extra)
+
     def get_or_init(self, factory: Callable[[], Callable], *, key: Hashable,
                     **plan_kwargs: Any) -> CommPlan:
         """The plan under ``key``; on a miss, ``factory`` runs once and the
@@ -141,6 +152,18 @@ class PlanCache:
 
     def __len__(self) -> int:
         return len(self._plans)
+
+
+def _abstract(x: Any) -> Hashable:
+    """Tensor -> (shape, dtype, device); dicts, lists and tuples -> their
+    nesting of those; anything else -> its repr (a static argument)."""
+    if isinstance(x, torch.Tensor):
+        return ("tensor", tuple(x.shape), str(x.dtype), str(x.device))
+    if isinstance(x, dict):
+        return ("dict", tuple((k, _abstract(v)) for k, v in sorted(x.items())))
+    if isinstance(x, (list, tuple)):
+        return (type(x).__name__, tuple(_abstract(v) for v in x))
+    return ("static", repr(x))
 
 
 def stale_epoch(key: Hashable, live_epoch: int) -> bool:

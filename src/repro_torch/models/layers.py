@@ -1,0 +1,249 @@
+"""Shared neural layers of the dense decoder: norms, rotary embeddings, GQA
+attention (+cache), gated MLPs, embeddings (PyTorch port of the slice of
+``src/repro/models/layers.py`` that the dense transformer runs).
+
+Pure functions over nested-dict params of tensors.  Weights are stored in
+``nn.Linear`` layout ``(out, in)`` and applied with ``F.linear``; the JAX
+package stores ``(in, out)`` and :mod:`repro_torch.models.convert` transposes
+between the two.
+
+Local attention goes through :func:`repro_torch.kernels.flash_attention.
+ops.attention`: the CUDA flash kernel for a CUDA tensor, the plain version
+for a CPU tensor, whatever ``ctx.use_flash`` says.  A caller may inject
+another function of the same signature (``attention=``), as a test or a
+comparison run does with the plain version on the card.  Ring attention,
+blockwise attention, cross attention, the ring MLP and the losses are not
+ported yet (ROADMAP Queue 1 items 15-16); a context that asks for a ring
+path raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.compat import torch_dtype
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.parallel.context import LOCAL, ParallelContext
+
+Params = dict
+#: ``attention(q, k, v, *, causal)`` on ``(B, S, H, D)`` tensors
+AttentionFn = Callable[..., torch.Tensor]
+
+RING_TODO = "ROADMAP Queue 1 item 16 (ring attention, ring MLP)"
+
+
+def _pdtype(cfg: ModelConfig) -> torch.dtype:
+    return torch_dtype(cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype: torch.dtype,
+               scale: float | None = None) -> torch.Tensor:
+    """An ``(out_dim, in_dim)`` weight, normal times ``1/sqrt(in_dim)``, made
+    on the generator's device."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    w = torch.randn((out_dim, in_dim), generator=gen, device=gen.device)
+    return (w * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype: torch.dtype) -> torch.Tensor:
+    return (torch.randn((vocab, dim), generator=gen, device=gen.device) * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+
+def norm_params(cfg: ModelConfig, device: torch.device, dim: int | None = None) -> Params:
+    d = dim or cfg.d_model
+    p = {"scale": torch.ones((d,), dtype=_pdtype(cfg), device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=_pdtype(cfg), device=device)
+    return p
+
+
+def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"].float()
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * p["scale"].float() + p["bias"].float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embedding (partial rotary: stablelm rope_pct)
+# ---------------------------------------------------------------------------
+
+
+def rope_frequencies(cfg: ModelConfig, head_dim: int, device: torch.device) -> torch.Tensor:
+    rot = int(head_dim * cfg.rope_pct) // 2 * 2
+    exps = torch.arange(0, rot, 2, dtype=torch.float32, device=device) / rot
+    return 1.0 / (cfg.rope_theta ** exps)  # (rot/2,)
+
+
+def apply_rope(cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) absolute token positions."""
+    d = x.shape[-1]
+    rot = int(d * cfg.rope_pct) // 2 * 2
+    if rot == 0:
+        return x
+    inv = rope_frequencies(cfg, d, x.device)
+    ang = positions[..., None].float() * inv  # (B, S, rot/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    xr, xp = x[..., :rot], x[..., rot:]
+    x1, x2 = xr[..., : rot // 2], xr[..., rot // 2:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1.to(x.dtype), y2.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+
+def attention_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    pd = _pdtype(cfg)
+    p = {
+        "wq": dense_init(gen, d, cfg.n_heads * hd, pd),
+        "wk": dense_init(gen, d, cfg.n_kv_heads * hd, pd),
+        "wv": dense_init(gen, d, cfg.n_kv_heads * hd, pd),
+        "wo": dense_init(gen, cfg.n_heads * hd, d, pd),
+    }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", cfg.n_heads), ("bk", cfg.n_kv_heads), ("bv", cfg.n_kv_heads)):
+            p[name] = torch.zeros((heads * hd,), dtype=pd, device=gen.device)
+    return p
+
+
+def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = F.linear(x, p["wq"].to(x.dtype))
+    k = F.linear(x, p["wk"].to(x.dtype))
+    v = F.linear(x, p["wv"].to(x.dtype))
+    if cfg.qkv_bias:  # added after the product, rounded apart, as in JAX
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return (q.reshape(b, s, cfg.n_heads, hd), k.reshape(b, s, cfg.n_kv_heads, hd),
+            v.reshape(b, s, cfg.n_kv_heads, hd))
+
+
+def _local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                     ctx: ParallelContext, attention: AttentionFn | None = None) -> torch.Tensor:
+    """(B, S, H, D)-layout attention on local (unsharded-seq) blocks.  The
+    JAX package picks its Pallas kernel or its oracle by ``ctx.use_flash``;
+    here the device picks (see :func:`~repro_torch.kernels.flash_attention.
+    ops.attention`), and there is no blockwise switch above 8192 tokens."""
+    return (attention or flash_ops.attention)(q, k, v, causal=causal)
+
+
+def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      ctx: ParallelContext = LOCAL, causal: bool | None = None,
+                      attention: AttentionFn | None = None) -> torch.Tensor:
+    """Attention for prefill bodies (q, k, v post-rope, (B, S, H, D))."""
+    causal = cfg.causal if causal is None else causal
+    if ctx.seq_parallel and ctx.mesh is not None and ctx.model_axis:
+        raise NotImplementedError(f"sequence-parallel prefill attention: {RING_TODO}")
+    return _local_attention(q, k, v, causal=causal, ctx=ctx, attention=attention)
+
+
+def self_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+                   ctx: ParallelContext = LOCAL, causal: bool | None = None,
+                   attention: AttentionFn | None = None) -> torch.Tensor:
+    """Full-sequence self attention (training / prefill); x (B, S, d)."""
+    q, k, v = _project_qkv(cfg, p, x)
+    q = apply_rope(cfg, q, positions)
+    k = apply_rope(cfg, k, positions)
+    out = prefill_attention(cfg, q, k, v, ctx=ctx, causal=causal, attention=attention)
+    b, s = out.shape[:2]
+    return F.linear(out.reshape(b, s, -1), p["wo"].to(x.dtype))
+
+
+def decode_attention(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,  # (B, 1, d)
+    cache_k: torch.Tensor,  # (B, Smax, Hkv, hd)
+    cache_v: torch.Tensor,
+    pos: torch.Tensor,  # (B,) per-sequence positions (continuous batching)
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token decode against a KV cache; returns (out, cache_k, cache_v).
+
+    The new token's K/V are written into the cache in place (the JAX code
+    returns updated copies); a position past the cache writes nothing, as
+    JAX's ``mode="drop"`` scatter.  Plain PyTorch on every device: the JAX
+    package computes it with einsums outside any Pallas kernel.  Query head
+    ``h`` reads kv head ``h // group`` through a grouped view, without the
+    repeated copy of the cache that the JAX code makes.
+    """
+    b = x.shape[0]
+    pos = pos.expand(b) if pos.dim() == 0 else pos
+    q, k, v = _project_qkv(cfg, p, x)
+    q = apply_rope(cfg, q, pos[:, None])
+    k = apply_rope(cfg, k, pos[:, None])
+    smax = cache_k.shape[1]
+    rows = torch.arange(b, device=x.device)
+    at = pos.clamp(max=smax - 1)
+    keep = (pos < smax)[:, None, None]
+    cache_k[rows, at] = torch.where(keep, k[:, 0].to(cache_k.dtype), cache_k[rows, at])
+    cache_v[rows, at] = torch.where(keep, v[:, 0].to(cache_v.dtype), cache_v[rows, at])
+    hd, hkv = cfg.resolved_head_dim, cfg.n_kv_heads
+    group = cfg.n_heads // hkv
+    qg = q.float().reshape(b, 1, hkv, group, hd)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache_k.float()) / math.sqrt(hd)
+    mask = torch.arange(smax, device=x.device)[None, :] <= pos[:, None]  # (B, Smax)
+    s = s.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", w, cache_v.float()).to(x.dtype)
+    out = F.linear(out.reshape(b, 1, -1), p["wo"].to(x.dtype))
+    return out, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_params(cfg: ModelConfig, gen: torch.Generator, d_ff: int | None = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    pd = _pdtype(cfg)
+    if cfg.act in ("silu", "geglu"):
+        return {
+            "w_gate": dense_init(gen, d, f, pd),
+            "w_up": dense_init(gen, d, f, pd),
+            "w_down": dense_init(gen, f, d, pd),
+        }
+    return {"w_up": dense_init(gen, d, f, pd), "w_down": dense_init(gen, f, d, pd)}
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    if cfg.act in ("silu", "geglu"):
+        act = F.silu if cfg.act == "silu" else _gelu
+        h = act(F.linear(x, p["w_gate"].to(x.dtype))) * F.linear(x, p["w_up"].to(x.dtype))
+    else:
+        h = _gelu(F.linear(x, p["w_up"].to(x.dtype)))
+    return F.linear(h, p["w_down"].to(x.dtype))

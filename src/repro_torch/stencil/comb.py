@@ -15,6 +15,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import profiling
 from repro_torch.core.compat import synchronize
 from repro_torch.core.transport import get_packer
 from repro_torch.stencil.domain import Domain
@@ -124,47 +125,16 @@ def run_cycles(
 
 
 def device_breakdown(driver: ExchangeStrategy, x: torch.Tensor, *, n_cycles: int = 3) -> dict:
-    """Where one steady cycle's time goes on the card, from ``torch.profiler``.
+    """Where one steady cycle's time goes on the card: one warm-up cycle,
+    then ``n_cycles`` traced (see :func:`repro_torch.core.profiling.
+    device_breakdown`).  CUDA only: raises when the trace holds no device
+    activity."""
+    state = [x]
 
-    Runs one warm-up cycle, then traces ``n_cycles``.  Returns per-cycle
-    device time by kernel name (with launches per cycle), the traced
-    window, the device-busy time (union of kernel, memcpy and memset
-    intervals) and the idle share of the window.  CUDA only: raises when
-    the trace holds no device activity."""
-    from torch.profiler import ProfilerActivity, profile
+    def cycle() -> None:
+        state[0] = driver.step(state[0])
 
-    x = driver.wait(driver.step(x))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_cycles):
-            x = driver.step(x)
-        driver.wait(x)
-    events = prof.events()
-    device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not device:
-        raise RuntimeError("the profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
-    busy, cur_start, cur_end = 0.0, *spans[0]
-    for start, end in spans[1:]:
-        if start > cur_end:
-            busy += cur_end - cur_start
-            cur_start = start
-        cur_end = max(cur_end, end)
-    busy += cur_end - cur_start
-    window = (max(e.time_range.end for e in events)
-              - min(e.time_range.start for e in events))
-    by_name: dict[str, list[float]] = {}
-    for e in device:
-        acc = by_name.setdefault(e.name, [0.0, 0])
-        acc[0] += e.time_range.end - e.time_range.start
-        acc[1] += 1
-    kernels = sorted(((name, us / n_cycles, n / n_cycles) for name, (us, n) in by_name.items()),
-                     key=lambda row: -row[1])
-    return {
-        "cycles": n_cycles, "window_us_per_cycle": window / n_cycles,
-        "busy_us_per_cycle": busy / n_cycles, "idle_share": 1.0 - busy / window,
-        "kernels": [{"name": n, "us_per_cycle": us, "launches_per_cycle": c}
-                    for n, us, c in kernels],
-    }
+    return profiling.device_breakdown(cycle, n_cycles=n_cycles)
 
 
 def _as_config(strategy: str | StrategyConfig, default_n_parts: int) -> StrategyConfig:

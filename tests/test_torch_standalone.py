@@ -34,7 +34,15 @@ def test_port_has_modules_and_smoke_script():
     for required in ("chip_smoke.py", "src/repro_torch/core/transport.py",
                      "src/repro_torch/stencil/comb.py",
                      "src/repro_torch/kernels/pack/pack.py",
-                     "src/repro_torch/kernels/stencil27/stencil27.py"):
+                     "src/repro_torch/kernels/stencil27/stencil27.py",
+                     "src/repro_torch/configs/base.py", "src/repro_torch/configs/llama3_8b.py",
+                     "src/repro_torch/parallel/context.py",
+                     "src/repro_torch/kernels/flash_attention/flash.py",
+                     "src/repro_torch/kernels/flash_attention/ops.py",
+                     "src/repro_torch/kernels/flash_attention/ref.py",
+                     "src/repro_torch/models/layers.py", "src/repro_torch/models/transformer.py",
+                     "src/repro_torch/models/api.py", "src/repro_torch/models/convert.py",
+                     "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py"):
         assert required in names
 
 
@@ -47,7 +55,7 @@ def test_no_jax_or_reference_package_import(path):
 def test_kernel_sources_are_built_not_committed_binaries():
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     names = sorted(p.name for p in csrc.iterdir())
-    assert {"pack.cu", "stencil27.cu"} <= set(names)
+    assert {"pack.cu", "stencil27.cu", "flash_attention.cu"} <= set(names)
     assert all(n.endswith((".cu", ".cuh")) for n in names), names
 
 
@@ -64,6 +72,21 @@ def test_default_device_raises_without_cuda():
     assert make_mesh((2,), ("px",), device="cpu").device.type == "cpu"
 
 
+def test_serving_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main
+    from repro_torch.models import build_model
+
+    cfg = get_config("llama3-8b").reduced()
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--arch", "llama3-8b", "--reduced"])
+    assert build_model(cfg, "cpu").device.type == "cpu"
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     from repro_torch.kernels.pack.pack import copy_convert, gather_pack
     from repro_torch.kernels.stencil27.stencil27 import stencil27
@@ -75,3 +98,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         gather_pack(x, torch.zeros((1, 7), dtype=torch.int64), torch.empty((2, 4)))
     with pytest.raises(ValueError, match="CUDA"):
         stencil27(x, torch.zeros((3, 3, 3)), torch.empty((2, 3, 3, 3)))
+
+
+def test_flash_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels.flash_attention.flash import flash_attention
+
+    q = torch.zeros((1, 8, 4, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q[:, :, :2], q[:, :, :2])
