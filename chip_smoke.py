@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU: the halo
-exchange (heat3d) and llama3-8b serving.
+exchange (heat3d), llama3-8b serving and rwkv6-1.6b serving.
 
     python3 chip_smoke.py
 
@@ -42,6 +42,32 @@ B. Serving llama3-8b at full width and depth (random bf16 weights from
    tie in the plain model's logits.  Prints prefill ms per bucket, decode
    ms per step, tokens per second, and the device idle share of a prefill
    and of a decode step (``torch.profiler``).
+C. ``wkv_chunked`` against its plain version ``wkv_plain`` on the card at
+   the shapes the rwkv6-1.6b serving path gives it, H = 32 heads of 64:
+   f32 prefill with batch 1 and T in {5, 64, 128, 2048} (chunk min(64, T)),
+   f32 decode with batch 4, T = 1 and a random starting state, a bf16
+   case and a strong-decay case (log decay -12, output finite); the final
+   state is held against the plain version's too.  Timed (CUDA events) at
+   prefill T = 2048 and at decode batch 4 beside the plain version; no
+   single PyTorch call computes WKV, so there is no library yardstick.
+D. Serving rwkv6-1.6b at full width and depth (random bf16 weights from
+   ``torch.Generator`` seed 0, about 3.2 GB; the llama3-8b weights of phase
+   B are freed first) through ``ServingEngine(max_slots=4, max_len=4096)``:
+   8 prompts of 5, 12, 64, 128, 512, 1024, 1536 and 2048 tokens (lengths
+   the reference's scan accepts), 16 new tokens each.  Launch counts are
+   zeroed just before and read just after: ``wkv_chunked`` must launch 24
+   times per prefill and 24 times per decode step, and the engine must init
+   one plan per prompt length (exact-length prefill) plus one decode plan.
+   The kernel is held against ``wkv_plain`` on the path's own inputs: every
+   layer's scan of each prompt's prefill and of a decode step (3e-4).  The
+   tokens are compared with the same engine with ``wkv_plain`` injected,
+   twice: with the bf16 weights, reported only (the random bf16 model
+   carries the scan's f32-level differences into logit differences of
+   several tenths, larger than the gaps between its top tokens), and with
+   the same weights in f32, held: equal, or a near tie at the first
+   difference (1e-4 x (1 + |logit|)), and the prefill token must agree.
+   Prints prefill ms per length, decode ms per step, tokens per second, and
+   the device idle share of the 2048-token prefill and of a decode step.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -49,6 +75,7 @@ B. Serving llama3-8b at full width and depth (random bf16 weights from
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -63,6 +90,9 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 #: H100 SXM data-sheet dense bf16 tensor-core rate, the operations bound
 BF16_FLOP_PER_S = 989e12
+#: H100 SXM data-sheet f32 rate outside the tensor cores (the WKV kernel's
+#: arithmetic, f32 on the CUDA cores)
+F32_FLOP_PER_S = 67e12
 MESH = ((4, 2), ("pz", "py"))
 GLOBAL_INTERIOR = (1024, 1024, 512)
 #: stated tolerances.  Pack/unpack are elementwise converts: exact.  The
@@ -76,6 +106,18 @@ HEAT_CYCLES, HEAT_REPEATS, VERIFY_CYCLES = 20, 3, 3
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 SERVE_LENGTHS = (5, 12, 100, 200, 500, 900, 1500, 2000)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 2048, 16
+#: WKV against its plain version, as tests/kernels/test_wkv.py: f32
+#: rtol=atol=3e-4, bf16 rtol=atol=5e-2
+WKV_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
+#: rwkv6-1.6b serving: lengths the reference's scan accepts (at most 64, or
+#: a multiple of 64); the state does not grow with max_len, and 4096 keeps
+#: the 2048-token prompt clear of the max_len - 1 stop
+RWKV_LENGTHS = (5, 12, 64, 128, 512, 1024, 1536, 2048)
+RWKV_SLOTS, RWKV_MAX_LEN, RWKV_NEW = 4, 4096, 16
+#: a near tie of two tokens in the plain run's bf16 logits, as phase B
+TIE_TOL = 2e-2
+#: a near tie in f32 logits: the f32 model tests' tolerance
+TIE_TOL_F32 = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -205,7 +247,7 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
     kernels["flash_attention"]["launches"] = launches["flash_attention"]
 
     plain_model = build_model(cfg, dev, attention=attention_plain)
-    plain_engine, plain_tokens, plain_s = serve(plain_model)
+    _, plain_tokens, plain_s = serve(plain_model)
     if _build.LAUNCHES["flash_attention"] != launches["flash_attention"]:
         fail("the plain-attention run launched the flash kernel")
     equal, ties = 0, []
@@ -274,6 +316,309 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
         prefill_trace=prefill_trace, decode_trace=decode_trace,
     )
     print("serving:", json.dumps({k: v for k, v in out.items() if not k.endswith("_trace")}),
+          flush=True)
+    return out
+
+
+def wkv_flops(rows: int, T: int, c: int, hd: int) -> int:
+    """Operations of the chunked scan, counted from shapes per (row, chunk):
+    the state term and the state update (2 x 2*c*hd*hd), the pairwise term
+    over the strictly lower (t, s) pairs (a subtract, an exponential, two
+    multiplies and an add per channel), A.v over the lower triangle with
+    the diagonal (2 per product), and the bonus (3*c*hd)."""
+    per_chunk = 4 * c * hd * hd + 5 * hd * c * (c - 1) // 2 + c * (c + 1) * hd + 3 * c * hd
+    return rows * (T // c) * per_chunk
+
+
+def check_wkv(torch, dev, kernels: dict) -> dict:
+    """Phase C: the WKV kernel against its plain version at the rwkv6-1.6b
+    serving path's shapes, timed at prefill T = 2048 and decode batch 4."""
+    from repro_torch.kernels.wkv import wkv_chunked, wkv_plain
+
+    gen = torch.Generator(dev).manual_seed(11)
+    H, hd, chunk = 32, 64, 64
+
+    def inputs(B, T, dtype=torch.float32, state=False, strong=False):
+        r, k, v = (torch.randn((B, T, H, hd), generator=gen, device=dev) for _ in range(3))
+        # the model's decays: -exp(w_base + lora) with w_base ~ N(-1, 0.5)
+        lw = (torch.full_like(r, -12.0) if strong else
+              -torch.exp(torch.randn((B, T, H, hd), generator=gen, device=dev) * 0.5 - 1.0))
+        u = torch.randn((H, hd), generator=gen, device=dev) * 0.1
+        S0 = torch.randn((B, H, hd, hd), generator=gen, device=dev) if state else None
+        return [t.to(dtype) for t in (r, k, v, lw, u)], S0
+
+    cases = [(f"prefill f32 B=1 T={T}", dict(B=1, T=T)) for T in (5, 64, 128, 2048)]
+    cases += [("decode f32 B=4 T=1, given state", dict(B=4, T=1, state=True)),
+              ("prefill bf16 B=1 T=128", dict(B=1, T=128, dtype=torch.bfloat16)),
+              ("strong decay f32 B=1 T=128 (lw=-12)", dict(B=1, T=128, strong=True)),
+              ("prefill f32 B=2 T=256, given state", dict(B=2, T=256, state=True))]
+    worst, errs = 0.0, {}
+    for label, kw in cases:
+        (r, k, v, lw, u), S0 = inputs(**kw)
+        y, S = wkv_chunked(r, k, v, lw, u, chunk=chunk, S0=S0)
+        want_y, want_S = wkv_plain(r.float(), k.float(), v.float(), lw.float(), u.float(),
+                                   chunk=chunk, S0=S0)
+        torch.cuda.synchronize()
+        dname = str(r.dtype)[6:]
+        tol = WKV_TOL[dname]
+        want_y = want_y.to(r.dtype)
+        err_y = (y.float() - want_y.float()).abs().max().item()
+        err_S = (S - want_S).abs().max().item()
+        if not (torch.isfinite(y.float()).all() and torch.isfinite(S).all()):
+            fail(f"wkv_chunked {label}: non-finite output or state")
+        if not (torch.allclose(y.float(), want_y.float(), rtol=tol, atol=tol)
+                and torch.allclose(S, want_S, rtol=tol, atol=tol)):
+            fail(f"wkv_chunked {label}: max abs err y {err_y}, state {err_S} (tol {tol})")
+        worst = max(worst, err_y, err_S)
+        errs[label] = dict(y=err_y, state=err_S, tol=tol)
+        print(f"wkv_chunked {label} {tuple(r.shape)} {dname}: max abs err y {err_y}, "
+              f"state {err_S} (tol {tol})", flush=True)
+    (r, k, v, lw, u), _ = inputs(1, 2048)
+    prefill = dict(
+        ms=time_ms(torch, lambda: wkv_chunked(r, k, v, lw, u, chunk=chunk)),
+        plain_ms=time_ms(torch, lambda: wkv_plain(r, k, v, lw, u, chunk=chunk), reps=3),
+        flops=wkv_flops(H, 2048, chunk, hd),
+        bytes=5 * r.numel() * 4 + (u.numel() + H * hd * hd) * 4)
+    (dr, dk, dv, dlw, du), dS0 = inputs(4, 1, state=True)
+    decode = dict(
+        ms=time_ms(torch, lambda: wkv_chunked(dr, dk, dv, dlw, du, chunk=chunk, S0=dS0)),
+        plain_ms=time_ms(torch, lambda: wkv_plain(dr, dk, dv, dlw, du, chunk=chunk, S0=dS0)),
+        flops=wkv_flops(4 * H, 1, 1, hd),
+        bytes=5 * dr.numel() * 4 + du.numel() * 4 + 2 * dS0.numel() * 4)
+    for d in (prefill, decode):
+        t_ops, t_bytes = d["flops"] / F32_FLOP_PER_S * 1e3, d["bytes"] / HBM_BYTES_PER_S * 1e3
+        d.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes")
+    kernels["wkv_chunked"] = dict(
+        name="wkv_chunked", route="cuda", source="src/repro_torch/kernels/csrc/wkv.cu",
+        replaces="src/repro/kernels/wkv/wkv.py:90", max_abs_err=worst,
+        ms=prefill["ms"], plain_ms=prefill["plain_ms"], bound_ms=prefill["bound_ms"],
+        bound_by=prefill["bound_by"], library_ms=None,
+        shape="r, k, v, lw (1, 2048, 32, 64) f32, chunk 64", flops=prefill["flops"],
+        flop_convention="per (row, chunk): 4*c*hd^2 + 5*hd*c(c-1)/2 + c(c+1)*hd + 3*c*hd",
+        bytes=prefill["bytes"], decode=dict(decode, shape="(4, 1, 32, 64) f32 + state"),
+        errors=errs,
+    )
+    print("wkv_chunked:", json.dumps(kernels["wkv_chunked"]), flush=True)
+    return kernels["wkv_chunked"]
+
+
+def rwkv_logits_at(torch, model, params, prompt, prefix, max_len):
+    """The logits that follow ``prompt + prefix`` in ``model``: an
+    exact-length prefill of the prompt, then one decode step per prefix
+    token (batch 1)."""
+    dev = model.device
+    toks = torch.as_tensor([prompt], dtype=torch.long, device=dev)
+    logits, cache = model.prefill(params, {"tokens": toks}, model.init_cache(1, max_len))
+    for t in prefix:
+        logits, cache = model.decode_step(params, torch.tensor([[t]], device=dev), cache)
+    return logits[0, -1].float()
+
+
+def to_f32_tree(tree):
+    if isinstance(tree, dict):
+        return {k: to_f32_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_f32_tree(v) for v in tree]
+    return tree.float()
+
+
+def compare_rwkv_tokens(torch, plain_model, params, prompts, got_tokens, want_tokens, tie_tol,
+                        *, check: bool):
+    """Requests whose tokens equal the plain engine's, and at the first
+    difference of each other request the gap of the two tokens' logits in
+    the plain model.  With ``check``, a differing prefill token, or a gap
+    above ``tie_tol * (1 + |logit|)``, fails the run."""
+    equal, ties = 0, []
+    for prompt, got, want in zip(prompts, got_tokens, want_tokens):
+        if got == want:
+            equal += 1
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+        logits = rwkv_logits_at(torch, plain_model, params, prompt, got[:i], RWKV_MAX_LEN)
+        la, lb = logits[got[i]].item(), logits[want[i]].item()
+        gap, tol = abs(la - lb), tie_tol * (1 + max(abs(la), abs(lb)))
+        ties.append(dict(prompt_len=len(prompt), step=i, kernel_token=got[i], plain_token=want[i],
+                         logit_gap=gap, tol=tol))
+        if check and i == 0:
+            fail(f"prompt of {len(prompt)}: the prefill token differs ({got[0]} vs {want[0]})")
+        if check and gap > tol:
+            fail(f"prompt of {len(prompt)}: tokens differ at step {i} ({got[i]} vs {want[i]}) "
+                 f"and the plain logits are {gap} apart (tol {tol}): not a near tie")
+    return equal, ties
+
+
+def serve_rwkv(torch, dev, kernels: dict) -> dict:
+    """Phase D: rwkv6-1.6b through the serving engine, the WKV kernel on
+    the path; the kernel held against the plain WKV on the path's own
+    inputs, and the tokens against an engine with the plain WKV (held with
+    the weights in f32, reported in bf16)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiling import device_breakdown
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.wkv import wkv_chunked, wkv_plain
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg = get_config("rwkv6-1.6b")
+    model = build_model(cfg, dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+
+    def leaves(tree):
+        return ([t for v in tree.values() for t in leaves(v)] if isinstance(tree, dict)
+                else [t for v in tree for t in leaves(v)] if isinstance(tree, list) else [tree])
+
+    n_params = sum(t.numel() for t in leaves(params))
+    param_gb = sum(t.numel() * t.element_size() for t in leaves(params)) / 1e9
+    print(f"rwkv6-1.6b: {cfg.n_layers} layers, d_model {cfg.d_model}, {n_params} parameters, "
+          f"{param_gb:.3f} GB of {params['embed'].dtype} made on the card in {init_s:.1f} s",
+          flush=True)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in RWKV_LENGTHS]
+    # warm-up outside the counted run (cuBLAS handles, the kernel library)
+    model.prefill(params, {"tokens": torch.zeros((1, 8), dtype=torch.long, device=dev)},
+                  model.init_cache(1, 8))
+    torch.cuda.synchronize()
+
+    def serve(m, weights=params):
+        engine = ServingEngine(m, weights, max_slots=RWKV_SLOTS, max_len=RWKV_MAX_LEN)
+        uids = [engine.submit(p, max_new_tokens=RWKV_NEW) for p in prompts]
+        t0 = time.perf_counter()
+        out = engine.run()
+        torch.cuda.synchronize()
+        return engine, [out[u] for u in uids], time.perf_counter() - t0
+
+    _build.reset_launches()
+    engine, tokens, serve_s = serve(model)
+    launches = dict(_build.LAUNCHES)
+    st = engine.stats
+    n_tokens = sum(len(t) for t in tokens)
+    print(f"serve rwkv6-1.6b: {st.prefills} prefills (lengths {list(RWKV_LENGTHS)}), "
+          f"{st.decode_steps} decode steps, {n_tokens} tokens in {serve_s:.3f} s = "
+          f"{n_tokens / serve_s:.1f} tok/s; plans {st.plan_inits} inits / {st.plan_hits} hits; "
+          f"launches {json.dumps(launches)}", flush=True)
+    if st.prefills != len(prompts) or any(len(t) != RWKV_NEW for t in tokens):
+        fail(f"served {st.prefills} prefills, token counts {[len(t) for t in tokens]}")
+    want_launches = cfg.n_layers * (st.prefills + st.decode_steps)
+    if launches.get("wkv_chunked", 0) != want_launches:
+        fail(f"wkv_chunked launched {launches.get('wkv_chunked', 0)} times for {st.prefills} "
+             f"prefills and {st.decode_steps} decode steps of {cfg.n_layers} layers "
+             f"(want {want_launches})")
+    if st.plan_inits != len(set(RWKV_LENGTHS)) + 1:
+        fail(f"{st.plan_inits} plan inits for {len(set(RWKV_LENGTHS))} prompt lengths + 1 decode plan")
+    kernels["wkv_chunked"]["launches"] = launches["wkv_chunked"]
+
+    plain_model = build_model(cfg, dev, wkv=wkv_plain)
+    _, plain_tokens, plain_s = serve(plain_model)
+    if _build.LAUNCHES["wkv_chunked"] != launches["wkv_chunked"]:
+        fail("the plain-WKV run launched the WKV kernel")
+
+    # the kernel against its plain version on the path's own inputs: every
+    # layer's scan of each prompt's prefill and of one batch-4 decode step
+    path_err = {"y": 0.0, "state": 0.0, "calls": 0}
+
+    def both(r, k, v, lw, u, *, chunk, S0=None):
+        y, S = wkv_chunked(r, k, v, lw, u, chunk=chunk, S0=S0)
+        want_y, want_S = wkv_plain(r, k, v, lw, u, chunk=chunk, S0=S0)
+        tol = WKV_TOL["float32"]
+        if not (torch.allclose(y, want_y, rtol=tol, atol=tol)
+                and torch.allclose(S, want_S, rtol=tol, atol=tol)):
+            fail(f"wkv_chunked on the path's inputs {tuple(r.shape)}: max abs err y "
+                 f"{(y - want_y).abs().max().item()}, state {(S - want_S).abs().max().item()}")
+        path_err["y"] = max(path_err["y"], (y - want_y).abs().max().item())
+        path_err["state"] = max(path_err["state"], (S - want_S).abs().max().item())
+        path_err["calls"] += 1
+        return y, S
+
+    check_model = build_model(cfg, dev, wkv=both)
+    prefill_gap = []
+    for prompt, got, want in zip(prompts, tokens, plain_tokens):
+        toks = torch.as_tensor([prompt], dtype=torch.long, device=dev)
+        lk = check_model.prefill(params, {"tokens": toks}, model.init_cache(1, 8))[0][0, -1].float()
+        lp = plain_model.prefill(params, {"tokens": toks}, model.init_cache(1, 8))[0][0, -1].float()
+        if not torch.isfinite(lk).all():
+            fail(f"prefill of {len(prompt)}: non-finite logits")
+        top2 = torch.topk(lp, 2)
+        prefill_gap.append(dict(prompt_len=len(prompt), kernel_token=got[0], plain_token=want[0],
+                                plain_top2_gap=(top2.values[0] - top2.values[1]).item(),
+                                max_logit_diff=(lk - lp).abs().max().item(),
+                                max_abs_logit=lp.abs().max().item()))
+    check_model.decode_step(params, torch.zeros((RWKV_SLOTS, 1), dtype=torch.long, device=dev),
+                            engine._cache)
+    print(f"wkv_chunked on the path's own inputs ({path_err['calls']} scans: 8 prefills and a "
+          f"decode step, 24 layers each) against wkv_plain: max abs err y {path_err['y']}, "
+          f"state {path_err['state']} (tol {WKV_TOL['float32']})", flush=True)
+    print(f"prefill logits, kernel engine vs plain: {json.dumps(prefill_gap)}", flush=True)
+    equal, ties = compare_rwkv_tokens(torch, plain_model, params, prompts, tokens,
+                                      plain_tokens, TIE_TOL, check=False)
+    print(f"bf16 tokens against the plain-WKV engine ({plain_s:.3f} s), reported, not held: "
+          f"{equal}/{len(prompts)} requests equal; first differences: {json.dumps(ties)}",
+          flush=True)
+
+    # the token check: the same weights in f32, where the scan's f32-level
+    # differences stay far below the logits' gaps; kernel engine against
+    # plain engine, the prefill token must agree
+    cfg32 = cfg.with_updates(dtype="float32", param_dtype="float32")
+    params32 = to_f32_tree(params)
+    model32, plain32 = build_model(cfg32, dev), build_model(cfg32, dev, wkv=wkv_plain)
+    engine32, tokens32, serve32_s = serve(model32, params32)
+    _, plain_tokens32, plain32_s = serve(plain32, params32)
+    equal32, ties32 = compare_rwkv_tokens(torch, plain32, params32, prompts, tokens32,
+                                          plain_tokens32, TIE_TOL_F32, check=True)
+    logit_err32 = {}
+    for prompt in prompts:
+        toks = torch.as_tensor([prompt], dtype=torch.long, device=dev)
+        lk = model32.prefill(params32, {"tokens": toks}, model32.init_cache(1, 8))[0]
+        lp = plain32.prefill(params32, {"tokens": toks}, model32.init_cache(1, 8))[0]
+        logit_err32[len(prompt)] = (lk - lp).abs().max().item()
+    print(f"f32 tokens, WKV kernel ({serve32_s:.3f} s) against the plain WKV ({plain32_s:.3f} s): "
+          f"{equal32}/{len(prompts)} requests equal; near ties at the first difference: "
+          f"{json.dumps(ties32)}; max |prefill logit kernel - plain| {json.dumps(logit_err32)}",
+          flush=True)
+    del params32, engine32
+
+    prefill_ms = {}
+    for n in RWKV_LENGTHS:
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, n)), device=dev)
+        cache1 = model.init_cache(1, RWKV_MAX_LEN)
+        prefill_ms[n] = host_ms(torch, lambda: model.prefill(params, {"tokens": toks}, cache1))
+    print(f"prefill ms by length {json.dumps(prefill_ms)}", flush=True)
+    cache = engine._cache
+    step_tok = torch.zeros((RWKV_SLOTS, 1), dtype=torch.long, device=dev)
+    decode_ms = host_ms(torch, lambda: model.decode_step(params, step_tok, cache), reps=7)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 2048)), device=dev)
+    cache1 = model.init_cache(1, RWKV_MAX_LEN)
+    prefill_trace = device_breakdown(lambda: model.prefill(params, {"tokens": toks}, cache1),
+                                     n_cycles=1)
+    decode_trace = device_breakdown(lambda: model.decode_step(params, step_tok, cache),
+                                    n_cycles=3)
+    decode_launches = sum(k["launches_per_cycle"] for k in decode_trace["kernels"])
+    print(f"decode step: {decode_ms:.2f} ms, {decode_launches:g} device activities per step",
+          flush=True)
+    for label, b in (("prefill 2048", prefill_trace), ("decode step", decode_trace)):
+        top = ", ".join(f"{short_kernel_name(k['name'])} x{k['launches_per_cycle']:g} "
+                        f"{k['us_per_cycle']:.0f}us" for k in b["kernels"][:6])
+        print(f"rwkv {label} breakdown: window {b['window_us_per_cycle']:.0f} us, device busy "
+              f"{b['busy_us_per_cycle']:.0f} us, idle share {b['idle_share']:.3f}; {top}",
+              flush=True)
+    out = dict(
+        model="rwkv6-1.6b", layers=cfg.n_layers, n_params=n_params, param_gb=param_gb,
+        init_s=init_s, slots=RWKV_SLOTS, max_len=RWKV_MAX_LEN, prompt_lengths=list(RWKV_LENGTHS),
+        prefills=st.prefills, decode_steps=st.decode_steps, plan_inits=st.plan_inits,
+        plan_hits=st.plan_hits, launches=launches, tokens=n_tokens, serve_s=serve_s,
+        tokens_per_s=n_tokens / serve_s, plain_serve_s=plain_s, equal_requests_bf16=equal,
+        first_differences_bf16=ties, prefill_logits_bf16=prefill_gap, path_check=path_err,
+        equal_requests_f32=equal32, near_ties_f32=ties32, prefill_logit_err_f32=logit_err32,
+        prefill_ms=prefill_ms,
+        decode_ms=decode_ms, decode_device_activities=decode_launches,
+        prefill_idle_share=prefill_trace["idle_share"], decode_idle_share=decode_trace["idle_share"],
+        prefill_trace=prefill_trace, decode_trace=decode_trace,
+    )
+    print("rwkv serving:", json.dumps({k: v for k, v in out.items() if not k.endswith("_trace")}),
           flush=True)
     return out
 
@@ -605,6 +950,15 @@ def main() -> int:
 
     # -- B. serving llama3-8b at full width: the second main path ------------
     record["serving"] = serve_llama(torch, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()  # the llama3-8b weights go before phase D
+
+    # -- C. wkv_chunked against its plain version ----------------------------
+    check_wkv(torch, dev, kernels)
+    torch.cuda.empty_cache()
+
+    # -- D. serving rwkv6-1.6b at full width: the third main path ------------
+    record["rwkv_serving"] = serve_rwkv(torch, dev, kernels)
 
     # -- 5. results -----------------------------------------------------------
     record.update(

@@ -1,6 +1,8 @@
 """Architecture registry of the PyTorch port: importing this package
-registers the dense decoders that ``repro_torch.models.transformer`` runs
-(the other families of the JAX package's registry wait for their slice)."""
+registers the architectures whose models are ported: the dense decoders
+that ``repro_torch.models.transformer`` runs and the RWKV-6 model of
+``repro_torch.models.rwkv`` (the other families of the JAX package's
+registry wait for their slice)."""
 
 from repro_torch.configs.base import (  # noqa: F401
     DECODE_32K,
@@ -19,5 +21,6 @@ from repro_torch.configs import (  # noqa: F401
     granite_8b,
     llama3_8b,
     qwen2_5_14b,
+    rwkv6_1_6b,
     stablelm_1_6b,
 )

@@ -6,7 +6,10 @@
     logits, cache = model.prefill(params, {"tokens": tokens}, cache)
     logits, cache = model.decode_step(params, token, cache)
 
-Only the dense family is ported in this slice; the others raise.
+The dense and rwkv families are ported; the others raise.  A caller may
+inject the kernel a family runs: ``attention=`` for the dense decoder's
+prefill attention, ``wkv=`` for the RWKV scan (e.g. their plain versions
+for a comparison run on the card).
 """
 
 from __future__ import annotations
@@ -18,11 +21,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rwkv, transformer
 from repro_torch.models.layers import AttentionFn
+from repro_torch.models.rwkv import WkvFn
 from repro_torch.parallel.context import LOCAL, ParallelContext
 
-_FAMILY_MODULES = {"dense": transformer}
+_FAMILY_MODULES = {"dense": transformer, "rwkv": rwkv}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +37,9 @@ class Model:
     #: local attention on (B, S, H, D); None is ``ops.attention`` (the CUDA
     #: flash kernel on the card, the plain version on the CPU)
     attention: AttentionFn | None = None
+    #: the RWKV scan on (B, T, H, hd); None is ``kernels.wkv.ops.wkv`` (the
+    #: CUDA kernel on the card, the plain version on the CPU)
+    wkv: WkvFn | None = None
 
     # -- params ---------------------------------------------------------------
     def init(self, gen: torch.Generator | int = 0) -> dict:
@@ -45,9 +52,15 @@ class Model:
         return self.module.init(self.cfg, gen)
 
     # -- steps ------------------------------------------------------------------
+    def _kernels(self) -> dict:
+        """The injected kernel function of this family, by keyword."""
+        if self.cfg.family == "rwkv":
+            return {"wkv": self.wkv}
+        return {"attention": self.attention}
+
     def logits(self, params, batch, *, ctx: ParallelContext = LOCAL):
         return self.module.logits_fn(self.cfg, params, batch["tokens"], ctx=ctx,
-                                     attention=self.attention)
+                                     **self._kernels())
 
     @property
     def has_decode(self) -> bool:
@@ -59,20 +72,26 @@ class Model:
                                       device=self.device if device is None else device)
 
     def prefill(self, params, batch, cache, *, ctx: ParallelContext = LOCAL, true_len=None):
-        return self.module.prefill(self.cfg, params, batch["tokens"], cache, ctx=ctx,
-                                   true_len=true_len, attention=self.attention)
+        # true_len ((B,) int32): bucket-padded prefill, which only the dense
+        # decoder has; it is passed on only when given, as in JAX
+        kw = {} if true_len is None else {"true_len": true_len}
+        return self.module.prefill(self.cfg, params, batch["tokens"], cache, ctx=ctx, **kw,
+                                   **self._kernels())
 
     def decode_step(self, params, token, cache, *, ctx: ParallelContext = LOCAL):
-        return self.module.decode_step(self.cfg, params, token, cache, ctx=ctx)
+        kw = {"wkv": self.wkv} if self.cfg.family == "rwkv" else {}
+        return self.module.decode_step(self.cfg, params, token, cache, ctx=ctx, **kw)
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None, *,
-                attention: AttentionFn | None = None) -> Model:
+                attention: AttentionFn | None = None, wkv: WkvFn | None = None) -> Model:
     """The model of ``cfg`` on ``device`` (None: the card; a missing card
-    raises).  ``attention`` replaces the local attention function, e.g. by
-    ``ops.attention_plain`` for a comparison run on the card."""
+    raises).  ``attention`` replaces the dense decoder's local attention
+    function, ``wkv`` the RWKV scan, e.g. by ``attention_plain`` or
+    ``wkv_plain`` for a comparison run on the card."""
     module = _FAMILY_MODULES.get(cfg.family)
     if module is None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP Queue 1 item 18")
-    return Model(cfg=cfg, module=module, device=resolve_device(device), attention=attention)
+    return Model(cfg=cfg, module=module, device=resolve_device(device), attention=attention,
+                 wkv=wkv)

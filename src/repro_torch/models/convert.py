@@ -1,7 +1,8 @@
-"""Carry dense-transformer parameters between the JAX package and the port.
+"""Carry model parameters between the JAX package and the port.
 
-The JAX tree (``repro.models.transformer.init``, as numpy arrays) stacks the
-layers on a leading axis and stores weights ``(in, out)``::
+The JAX tree (``repro.models.transformer.init`` or ``repro.models.rwkv.
+init``, as numpy arrays) stacks the layers on a leading axis and stores
+weights ``(in, out)``.  The dense decoder's tree::
 
     {"embed": (V, d), "norm_f": {...}, ["lm_head": (V, d)],
      "layers": {"norm_attn": {"scale": (L, d), ["bias"]},
@@ -10,11 +11,24 @@ layers on a leading axis and stores weights ``(in, out)``::
                 "norm_mlp": {...},
                 "mlp": {"w_gate", "w_up": (L, d, f), "w_down": (L, f, d)}}}
 
+The RWKV tree mixes arrays and dicts in ``layers`` and has a top-level
+``ln_in``::
+
+    {"embed": (V, d), "ln_in": {...}, "norm_f": {...}, "lm_head": (V, d),
+     "layers": {"ln1": {"scale", "bias": (L, d)}, "ln2": {...},
+                "mu": (L, 5, d), "mu_c": (L, 2, d), "w_base": (L, d),
+                "u": (L, H, hd), "wr", "wk", "wv", "wg", "wo": (L, d, d),
+                "w_lora_a": (L, d, r), "w_lora_b": (L, r, d),
+                "ck": (L, d, f), "cv": (L, f, d), "cr": (L, d, d)}}
+
 The port keeps one dict per layer and ``nn.Linear`` weights ``(out, in)``.
-So :func:`params_from_jax` splits the leading axis and transposes every
-weight matrix (a leaf named ``w*``); embeddings, norms and biases keep their
-layout.  :func:`params_to_numpy` is the inverse.  bf16 arrays (ml_dtypes
-``bfloat16``) cross as their 16-bit patterns, exactly.
+So :func:`params_from_jax` splits the leading axis of ``layers`` and
+transposes each family's weight matrices: in the dense tree every leaf named
+``w*``, in the RWKV tree the set :data:`RWKV_MATRICES` (``w_base`` is a
+vector, ``ck``/``cv``/``cr`` are matrices).  Embeddings, norms, biases,
+mixes and the bonus keep their layout.  :func:`params_to_numpy` is the
+inverse.  bf16 arrays (ml_dtypes ``bfloat16``) cross as their 16-bit
+patterns, exactly.
 """
 
 from __future__ import annotations
@@ -26,7 +40,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import resolve_device
 
 
-def _is_matrix(name: str) -> bool:
+#: the weight matrices of an RWKV layer (stored transposed in the port)
+RWKV_MATRICES = frozenset({"wr", "wk", "wv", "wg", "wo", "w_lora_a", "w_lora_b",
+                           "ck", "cv", "cr"})
+
+
+def _is_matrix(cfg: ModelConfig, name: str) -> bool:
+    if cfg.family == "rwkv":
+        return name in RWKV_MATRICES
     return name.startswith("w")
 
 
@@ -46,23 +67,31 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _layer_from_jax(cfg: ModelConfig, tree: dict, i: int, dev: torch.device) -> dict:
+    """Layer ``i`` of a stacked subtree, matrices transposed."""
+    return {name: (_layer_from_jax(cfg, a, i, dev) if isinstance(a, dict)
+                   else _to_torch(a[i].T if _is_matrix(cfg, name) else a[i], dev))
+            for name, a in tree.items()}
+
+
+def _stack_to_numpy(cfg: ModelConfig, name: str, items: list):
+    """The stacked JAX subtree of one entry of every layer."""
+    if isinstance(items[0], dict):
+        return {key: _stack_to_numpy(cfg, key, [it[key] for it in items]) for key in items[0]}
+    return np.stack([_to_numpy(t.T if _is_matrix(cfg, name) else t) for t in items])
+
+
+def _map_tree(fn, tree):
+    return {k: _map_tree(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
 def params_from_jax(cfg: ModelConfig, tree: dict, device: str | torch.device | None = None) -> dict:
     """The port's parameters from the JAX package's parameter tree of numpy
     arrays, on ``device`` (None: the card)."""
     dev = resolve_device(device)
-    layers = tree["layers"]
-    out = {
-        "embed": _to_torch(tree["embed"], dev),
-        "norm_f": {k: _to_torch(a, dev) for k, a in tree["norm_f"].items()},
-        "layers": [
-            {group: {name: _to_torch(a[i].T if _is_matrix(name) else a[i], dev)
-                     for name, a in leaves.items()}
-             for group, leaves in layers.items()}
-            for i in range(cfg.n_layers)
-        ],
-    }
-    if "lm_head" in tree:
-        out["lm_head"] = _to_torch(tree["lm_head"], dev)
+    out = {name: _map_tree(lambda a: _to_torch(a, dev), sub)
+           for name, sub in tree.items() if name != "layers"}
+    out["layers"] = [_layer_from_jax(cfg, tree["layers"], i, dev) for i in range(cfg.n_layers)]
     return out
 
 
@@ -72,16 +101,6 @@ def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
     layers = params["layers"]
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{len(layers)} layers for a {cfg.n_layers}-layer config")
-    tree = {
-        "embed": _to_numpy(params["embed"]),
-        "norm_f": {k: _to_numpy(t) for k, t in params["norm_f"].items()},
-        "layers": {
-            group: {name: np.stack([_to_numpy(lp[group][name].T if _is_matrix(name)
-                                              else lp[group][name]) for lp in layers])
-                    for name in leaves}
-            for group, leaves in layers[0].items()
-        },
-    }
-    if "lm_head" in params:
-        tree["lm_head"] = _to_numpy(params["lm_head"])
+    tree = {name: _map_tree(_to_numpy, sub) for name, sub in params.items() if name != "layers"}
+    tree["layers"] = _stack_to_numpy(cfg, "layers", layers)
     return tree

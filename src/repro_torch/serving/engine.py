@@ -89,10 +89,14 @@ class ServingEngine:
         def decode_fn(params, token, cache):
             return model.decode_step(params, token, cache, ctx=ctx)
 
+        def prefill_fn(params, batch, cache):
+            return model.prefill(params, batch, cache, ctx=ctx)
+
         def prefill_bucketed_fn(params, batch, cache, true_len):
             return model.prefill(params, batch, cache, ctx=ctx, true_len=true_len)
 
         self._decode_fn = decode_fn
+        self._prefill_fn = prefill_fn
         self._prefill_bucketed_fn = prefill_bucketed_fn
 
     # -- public API ---------------------------------------------------------
@@ -134,24 +138,38 @@ class ServingEngine:
                 self._slots[i] = req
                 break
 
-    def _prefill_bucket(self, plen: int) -> int:
-        """Padded prompt length.  Every family the port serves (dense)
-        prefills bucketed; the JAX engine's exact-length prefill of the
-        length-sensitive families (MoE, VLM) comes with those models."""
+    def _prefill_bucket(self, plen: int) -> int | None:
+        """Padded prompt length, or None for exact-length prefill.
+
+        Only the dense transformer prefills bucketed, as in the JAX engine:
+        the other families are length-sensitive (RWKV's recurrent state
+        would run on through the padding), so they prefill at the exact
+        length, one plan per distinct length.
+        """
+        if self.model.cfg.family != "dense":
+            return None
         return min(_next_pow2(plen), self.max_len)
 
     def _prefill_slot(self, slot: int, req: Request) -> None:
         """Single-slot prefill into the shared batched cache: a batch-1
         cache is filled, then copied into the batched cache at ``slot``.
         Dense prompts right-pad to power-of-two buckets with the true length
-        as a tensor argument, so every length in a bucket shares one plan."""
+        as a tensor argument, so every length in a bucket shares one plan;
+        other families prefill at the exact length."""
         prompt = np.asarray(req.prompt, np.int64)[None]
         plen = prompt.shape[1]
-        padded = np.pad(prompt, ((0, 0), (0, self._prefill_bucket(plen) - plen)))
-        true_len = torch.full((1,), plen, dtype=torch.int32, device=self.device)
-        args = (self.params, {"tokens": torch.as_tensor(padded, device=self.device)},
-                self.model.init_cache(1, self.max_len), true_len)
-        logits, cache1 = self._plan(self._prefill_bucketed_fn, args).start(*args)
+        bucket = self._prefill_bucket(plen)
+        cache1 = self.model.init_cache(1, self.max_len)
+        if bucket is None:
+            fn = self._prefill_fn
+            args = (self.params, {"tokens": torch.as_tensor(prompt, device=self.device)}, cache1)
+        else:
+            padded = np.pad(prompt, ((0, 0), (0, bucket - plen)))
+            true_len = torch.full((1,), plen, dtype=torch.int32, device=self.device)
+            fn = self._prefill_bucketed_fn
+            args = (self.params, {"tokens": torch.as_tensor(padded, device=self.device)}, cache1,
+                    true_len)
+        logits, cache1 = self._plan(fn, args).start(*args)
         self.stats.prefills += 1
         self._cache = _write_slot(self._cache, cache1, slot, self._slot_axes)
         self._positions[slot] = plen
