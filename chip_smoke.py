@@ -11,11 +11,15 @@ prints no result.  Every phase that fails ends the run with a non-zero exit.
 1. Build every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one nvcc
    per source, in parallel) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the main path gives it: the heat3d layout, a (4, 2) mesh over
+   shapes the main path gives it (``copy_convert`` also on a misaligned
+   window, its scalar path, and an aligned one with a ragged run, its
+   vector path's tail): the heat3d layout, a (4, 2) mesh over
    (pz, py) with x whole and a global interior of (1024, 1024, 512) f32, so
    each rank's ghosted block is (258, 514, 512).  Print each kernel's time
-   (CUDA events, median), its plain version's time, its bound (bytes over
-   3.35 TB/s) and one PyTorch call computing the same function.
+   (CUDA events around one call, median, the pack kernels after an L2
+   flush; ``copy_convert`` also by ``torch.profiler``'s device time), its
+   plain version's time, its bound (bytes over 3.35 TB/s) and one PyTorch
+   call computing the same function.
 3. Exchange matrix at full size: 5 strategies x 4 packers x coalesce on/off
    against the port's ``reference_exchange`` on the card (bitwise for the
    exact packers, within ``wire_tolerance`` for the lossy ones).
@@ -28,9 +32,14 @@ prints no result.  Every phase that fails ends the run with a non-zero exit.
 A. ``flash_attention`` against its plain version on the card at the shapes
    the serving path gives it (llama3-8b prefill, causal, bf16, S in
    {8, 128, 1000, 2048}; an MHA head_dim-64 case causal and not; an f32
-   case; a strided q), timed at S = 2048 beside the plain version and
+   case, the CUDA-core route; a strided ragged q; Sq > Skv causal; Sq !=
+   Skv non-causal); at S = 2048 also held to FLASH_REL_TOL in relative
+   norm against the plain version in f32, a bound that a planted fault (one
+   kv tile skipped, computed in plain PyTorch) must exceed; timed at
+   S = 2048 beside the plain version and
    ``F.scaled_dot_product_attention`` (the library yardstick, never on the
-   path).
+   path): 20 back-to-back launches between one pair of CUDA events, and
+   one launch as in earlier runs.
 B. Serving llama3-8b at full width and depth (random bf16 weights from
    ``torch.Generator`` seed 0, about 16.1 GB on the card) through
    ``ServingEngine(max_slots=4, max_len=2048)``: 8 requests of 5-2000
@@ -104,6 +113,12 @@ HEAT_CYCLES, HEAT_REPEATS, VERIFY_CYCLES = 20, 3, 3
 #: flash attention against its plain version, as tests/kernels/test_flash.py:
 #: bf16 output rtol=atol=2e-2, f32 rtol=atol=2e-5
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+#: the bf16 route at llama3-8b S = 2048 held tighter, where FLASH_TOL's atol
+#: is about half a late causal row's values: ||got - want|| / ||want|| against
+#: the plain version in f32 on the same inputs, over all rows and over the
+#: late half; a skipped kv tile must read above it
+FLASH_REL_TOL = 5e-3
+FLASH_FAULT_KEYS = (1024, 1088)
 SERVE_LENGTHS = (5, 12, 100, 200, 500, 900, 1500, 2000)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 2048, 16
 #: WKV against its plain version, as tests/kernels/test_wkv.py: f32
@@ -156,6 +171,53 @@ def time_ms(torch, fn, *, reps: int = 7, flush=None) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def time_ms_batched(torch, fn, *, n: int = 20, reps: int = 5) -> float:
+    """Median over ``reps`` of the device time of ``n`` back-to-back
+    launches of ``fn`` between one pair of CUDA events, divided by ``n``, so
+    a wrapper's host time overlaps the launches before it."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def device_ms(torch, fn, *, flush, reps: int = 7) -> float:
+    """Mean device time of the kernels ``fn`` launches, by ``torch.profiler``
+    (the wrapper's host time left out), each call after ``flush`` (a fill,
+    left out)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and "Fill" not in e.key)
+    return total / reps / 1e3
+
+
+def attention_keys_dropped(torch, q, k, v, keys: tuple[int, int]):
+    """Causal attention of f32 ``(B, S, H, D)`` q and ``(B, S, Hkv, D)`` k, v
+    with the keys in ``range(*keys)`` left out of every row: what a kernel
+    that skipped that kv tile would return (a planted fault, plain PyTorch)."""
+    group = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2)
+    kh, vh = (t.repeat_interleave(group, 2).transpose(1, 2) for t in (k, v))
+    scores = (qh @ kh.mT) / math.sqrt(q.shape[-1])
+    pos_q = torch.arange(q.shape[1], device=q.device)[:, None]
+    pos_k = torch.arange(k.shape[1], device=q.device)[None, :]
+    keep = (pos_q >= pos_k) & ((pos_k < keys[0]) | (pos_k >= keys[1]))
+    return (torch.softmax(scores.masked_fill(~keep, -math.inf), -1) @ vh).transpose(1, 2)
 
 
 def host_ms(torch, fn, *, reps: int = 3) -> float:
@@ -624,6 +686,9 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
 
 
 def main() -> int:
+    import contextlib
+    import io
+
     import torch
 
     if not torch.cuda.is_available():
@@ -662,12 +727,16 @@ def main() -> int:
 
     # -- 1. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build_all(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):  # nvcc -Xptxas -v: registers, spills
+        libs = _build.build_all(verbose=True)
     build_s = time.perf_counter() - t0
+    print(log.getvalue(), end="", flush=True)
     smi = nvidia_smi_line()
     print(f"build: {sorted(libs)} in {build_s:.1f} s; card: {smi}; "
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-    record.update(build_s=build_s, card=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    record.update(build_s=build_s, card=smi, torch=torch.__version__, cuda=torch.version.cuda,
+                  build_log=log.getvalue())
 
     mesh = make_mesh(*MESH, device=dev)
     dom = Domain(mesh, GLOBAL_INTERIOR, DOMAIN_AXES)
@@ -705,6 +774,35 @@ def main() -> int:
             print(f"copy_convert {fname} face {tuple(win.shape)} f32->{str(wire)[6:]} "
                   f"scale={scale}: exact", flush=True)
             del back
+    # the scalar path (a window starting 4 bytes past a vector, rows of 510)
+    # and the vector path's tail (aligned rows of 512, runs of 510), pack,
+    # unpack and window to window
+    for label, ws in (("misaligned", (slice(1, 2), slice(3, 500), slice(1, 511))),
+                      ("ragged run", (slice(1, 2), slice(3, 500), slice(0, 510)))):
+        win = xb[(slice(None), *ws)]
+        for wire, scale in ((torch.float32, 1.0), (torch.bfloat16, 8.0)):
+            buf = torch.empty(win.shape, dtype=wire, device=dev)
+            pack_k.copy_convert(win, buf, scale=scale)
+            want = pack_2d_ref(win, out_dtype=wire, scale=scale)
+            ghost = torch.zeros((ranks, 2, 514, 512), device=dev)[(slice(None), slice(1, 2), *ws[1:])]
+            pack_k.copy_convert(buf, ghost, scale=1.0 / scale if scale != 1.0 else 1.0)
+            want_back = unpack_2d_ref(want, out_dtype=torch.float32, scale=scale)
+            other = torch.zeros((ranks, 2, 514, 512), dtype=wire, device=dev)
+            owin = other[(slice(None), slice(1, 2), *ws[1:])]
+            pack_k.copy_convert(win, owin, scale=scale)
+            torch.cuda.synchronize()
+            err = max((buf.float() - want.float()).abs().max().item(),
+                      (ghost - want_back).abs().max().item())
+            exact = (torch.equal(buf, want) and torch.equal(ghost, want_back)
+                     and torch.equal(owin, want))
+            owin.zero_()  # nothing may have been written outside the window
+            if not exact or other.any():
+                fail(f"copy_convert {label} window {tuple(win.shape)} {wire} scale={scale}: "
+                     f"max err {err}")
+            worst = max(worst, err)
+            print(f"copy_convert {label} window {tuple(win.shape)} f32->{str(wire)[6:]} "
+                  f"scale={scale}, pack, unpack and window to window: exact", flush=True)
+            del buf, want, ghost, want_back, other, owin
     # timed case: the pz face f32 pack, as the main path packs it
     win = xb[:, 1:2, :, :]
     buf = torch.empty(win.shape, dtype=torch.float32, device=dev)
@@ -716,6 +814,11 @@ def main() -> int:
         plain_ms=time_ms(torch, lambda: buf.copy_(pack_2d_ref(win, out_dtype=torch.float32)), flush=flush),
         bound_ms=bound_ms(nbytes), bound_by="bytes",
         library_ms=time_ms(torch, lambda: buf.copy_(win.to(torch.float32)), flush=flush),
+        device_ms=device_ms(torch, lambda: pack_k.copy_convert(win, buf), flush=flush),
+        library_device_ms=device_ms(torch, lambda: buf.copy_(win), flush=flush),
+        timing="ms, plain_ms, library_ms: CUDA events around one call after an L2 flush "
+               "(the wrapper's host time inside); device_ms, library_device_ms: torch.profiler "
+               "device time of the same calls",
         shape=list(win.shape),
     )
     print("copy_convert:", json.dumps(kernels["copy_convert"]), flush=True)
@@ -898,21 +1001,26 @@ def main() -> int:
 
     gen = torch.Generator(dev).manual_seed(7)
 
-    def qkv(b, s, hq, hkv, d, dtype, strided=False):
+    def qkv(b, s, hq, hkv, d, dtype, strided=False, skv=None):
+        skv = s if skv is None else skv
         q = torch.randn((b, hq, s, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
-        k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(dtype)
+                for _ in range(2))
         return (q if strided else q.contiguous()), k, v
 
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(f"llama3-8b prefill S={s}", (1, s, 32, 8, 128), bf16, True, False)
+    cases = [(f"llama3-8b prefill S={s}", (1, s, 32, 8, 128), bf16, True, False, None)
              for s in (8, 128, 1000, 2048)]
-    cases += [("MHA d=64 causal", (1, 512, 32, 32, 64), bf16, True, False),
-              ("MHA d=64 non-causal", (1, 512, 32, 32, 64), bf16, False, False),
-              ("GQA f32 causal", (1, 256, 32, 8, 128), f32, True, False),
-              ("strided q, ragged, non-causal", (2, 100, 4, 2, 64), bf16, False, True)]
+    cases += [("MHA d=64 causal", (1, 512, 32, 32, 64), bf16, True, False, None),
+              ("MHA d=64 non-causal", (1, 512, 32, 32, 64), bf16, False, False, None),
+              ("GQA f32 causal (CUDA-core route)", (1, 256, 32, 8, 128), f32, True, False, None),
+              ("strided q, ragged, non-causal", (2, 100, 4, 2, 64), bf16, False, True, None),
+              ("Sq > Skv causal: rows past Skv see every key", (1, 1000, 32, 8, 128), bf16, True,
+               False, 300),
+              ("Sq != Skv non-causal, ragged", (2, 200, 32, 8, 128), bf16, False, False, 777)]
     worst = 0.0
-    for label, shape, dtype, causal, strided in cases:
-        q, k, v = qkv(*shape, dtype, strided)
+    for label, shape, dtype, causal, strided, skv in cases:
+        q, k, v = qkv(*shape, dtype, strided, skv)
         got = flash_attention(q, k, v, causal=causal)
         want = attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
@@ -925,23 +1033,53 @@ def main() -> int:
         print(f"flash_attention {label} q {tuple(q.shape)} kv {tuple(k.shape)} {str(dtype)[6:]}: "
               f"max abs err {err} (tol {tol})", flush=True)
     q, k, v = qkv(1, 2048, 32, 8, 128, bf16)
+    got = flash_attention(q, k, v, causal=True).float()
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    want = attention_plain(q32, k32, v32, causal=True)
+    fault = attention_keys_dropped(torch, q32, k32, v32, FLASH_FAULT_KEYS)
+    late = q.shape[1] // 2
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    rel_norm = {"all rows": rel(got, want), "late half": rel(got[:, late:], want[:, late:]),
+                "fault, all rows": rel(fault, want),
+                "fault, late half": rel(fault[:, late:], want[:, late:])}
+    print(f"flash_attention S=2048 relative-norm error vs plain f32 (tol {FLASH_REL_TOL}; "
+          f"fault: keys {FLASH_FAULT_KEYS[0]}-{FLASH_FAULT_KEYS[1] - 1} dropped): "
+          f"{json.dumps(rel_norm)}", flush=True)
+    if not (rel_norm["all rows"] < FLASH_REL_TOL and rel_norm["late half"] < FLASH_REL_TOL):
+        fail(f"flash_attention S=2048: relative-norm error {rel_norm}")
+    if not min(rel_norm["fault, all rows"], rel_norm["fault, late half"]) > FLASH_REL_TOL:
+        fail(f"flash_attention S=2048: the relative-norm check cannot see a skipped kv tile "
+             f"{rel_norm}")
+    del q32, k32, v32, fault
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     torch.cuda.synchronize()
     sdpa_err = (sdpa.transpose(1, 2).float() - attention_plain(q, k, v).float()).abs().max().item()
     flops = 2 * q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] * q.shape[3]
     nbytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
+    def kernel():
+        return flash_attention(q, k, v, causal=True)
+
+    def sdpa_call():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
     kernels["flash_attention"] = dict(
         name="flash_attention", route="cuda",
+        route_by_dtype={"bfloat16": "tensor cores: wgmma bf16, TMA loads (flash_tc_kernel)",
+                        "float32": "CUDA cores: f32 FMA (flash_kernel)"},
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/flash.py:127", max_abs_err=worst,
-        ms=time_ms(torch, lambda: flash_attention(q, k, v, causal=True)),
+        ms=time_ms_batched(torch, kernel), ms_single=time_ms(torch, kernel),
         plain_ms=time_ms(torch, lambda: attention_plain(q, k, v, causal=True)),
         bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
-        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-        library_max_abs_err=sdpa_err, flops=flops, flop_convention="2*B*Hq*Sq*Skv*D (causal)",
+        library_ms=time_ms_batched(torch, sdpa_call), library_ms_single=time_ms(torch, sdpa_call),
+        timing="ms, library_ms: 20 back-to-back launches between one pair of CUDA events / 20 "
+               "(median of 5); *_single: one launch (median of 7)",
+        library_max_abs_err=sdpa_err, rel_norm_err=rel_norm, flops=flops, flop_convention="2*B*Hq*Sq*Skv*D (causal)",
         bytes=nbytes, shape=[list(q.shape), list(k.shape)],
     )
     print("flash_attention:", json.dumps(kernels["flash_attention"]), flush=True)
@@ -971,7 +1109,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kd[k] for k in keys} for kd in kernels.values()]}))
+    print(json.dumps({"kernels": [{k: kd[k] for k in (*keys, "route_by_dtype") if k in kd}
+                                  for kd in kernels.values()]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

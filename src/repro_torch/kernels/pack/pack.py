@@ -20,6 +20,7 @@ allocates nothing, and adds one to ``_build.LAUNCHES[<name>]`` per launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Sequence
 
@@ -31,7 +32,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    "copy_convert": [_P, _I, _P, _I] + [_L] * 12 + [_F, _P],
+    "copy_convert": [_P, _I, _P, _I] + [_L] * 12 + [_I, _F, _P],
     "gather_pack": [_P, _I, _P, _I, _P, _I, _L, _I, _L, _L, _L, _F, _P],
 }
 
@@ -53,9 +54,69 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: unsupported dtype {t.dtype}")
 
 
+def collapse_window(
+    shape: Sequence[int], src_strides: Sequence[int], dst_strides: Sequence[int]
+) -> tuple[tuple[int, ...], tuple[int, ...], tuple[int, ...]]:
+    """The fewest dims that address the same elements of a same-shaped
+    (src, dst) window pair, in the same order: unit dims dropped, and each
+    dim merged into the one outside it where both sides are contiguous
+    across the pair (``outer stride == inner stride * inner extent`` on src
+    and on dst).  Returns ``(shape, src_strides, dst_strides)``, at least
+    one dim; the last is the run the kernel's threads walk."""
+    dims: list[tuple[int, int, int]] = []
+    for n, s, d in zip(shape, src_strides, dst_strides):
+        if n == 1:
+            continue
+        if dims and dims[-1][1] == s * n and dims[-1][2] == d * n:
+            dims[-1] = (dims[-1][0] * n, s, d)
+        else:
+            dims.append((n, s, d))
+    if not dims:
+        dims = [(1, 1, 1)]
+    n, s, d = zip(*dims)
+    return tuple(n), tuple(s), tuple(d)
+
+
+def vector_width(shape: Sequence[int], src_strides: Sequence[int], dst_strides: Sequence[int],
+                 src_ptr: int, dst_ptr: int, src_size: int, dst_size: int) -> int:
+    """Elements a thread moves at once in a collapsed window: 16 bytes of
+    the wider type (8 bf16 to bf16, else 4: an f32 side moves a float4, a
+    bf16 side 8 bytes, so each warp access is one contiguous span) where the
+    run is contiguous on both sides, at least that long, and every row
+    starts aligned to the vector on both sides (both base addresses and
+    every row stride of a dim longer than 1); else 1."""
+    width = 16 // max(src_size, dst_size)
+    if src_strides[-1] != 1 or dst_strides[-1] != 1 or shape[-1] < width:
+        return 1
+    if src_ptr % (width * src_size) or dst_ptr % (width * dst_size):
+        return 1
+    if any(s % width or d % width
+           for n, s, d in zip(shape[:-1], src_strides[:-1], dst_strides[:-1]) if n > 1):
+        return 1
+    return width
+
+
+@functools.lru_cache(maxsize=1024)
+def _launch_layout(shape: tuple[int, ...], src_strides: tuple[int, ...],
+                   dst_strides: tuple[int, ...], src_size: int, dst_size: int):
+    """The kernel's 4-dim ``(shape, src strides, dst strides)`` of a window
+    (collapsed, padded outside with unit dims of stride 0) and the vector
+    width its strides allow, once per layout: a plan's windows repeat every
+    step, so the per-call work left is the base pointers' alignment."""
+    n, ss, ds = collapse_window(shape, src_strides, dst_strides)
+    vec = vector_width(n, ss, ds, 0, 0, src_size, dst_size)
+    pad = 4 - len(n)
+    n, ss, ds = (1,) * pad + n, (0,) * pad + ss, (0,) * pad + ds
+    if n[1] * n[2] >= 2**32:
+        raise ValueError(f"copy_convert: {n[1] * n[2]} rows in dims 1-2 (< 2**32)")
+    return n, ss, ds, vec
+
+
 def copy_convert(src: torch.Tensor, dst: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
     """``dst[...] = (src.float() * f32(scale)).to(dst.dtype)``, elementwise,
-    for same-shaped strided views (<= 4 dims, f32/bf16).  Returns ``dst``."""
+    for same-shaped strided views (<= 4 dims, f32/bf16).  The window is
+    collapsed (:func:`collapse_window`) into rows and a run, moved 16 bytes
+    a thread where :func:`vector_width` allows.  Returns ``dst``."""
     _check_cuda("copy_convert", src, dst)
     if src.shape != dst.shape or src.dim() > 4:
         raise ValueError(f"copy_convert: shapes {tuple(src.shape)} -> "
@@ -64,13 +125,13 @@ def copy_convert(src: torch.Tensor, dst: torch.Tensor, *, scale: float = 1.0) ->
         raise TypeError(f"copy_convert: {src.dtype} -> {dst.dtype} (f32/bf16 only)")
     if any(s < 0 for s in (*src.stride(), *dst.stride())):
         raise ValueError("copy_convert: negative strides")
-    pad = 4 - src.dim()
-    n = (1,) * pad + tuple(src.shape)
-    ss = (0,) * pad + tuple(src.stride())
-    ds = (0,) * pad + tuple(dst.stride())
+    src_size, dst_size = src.element_size(), dst.element_size()
+    n, ss, ds, vec = _launch_layout(src.shape, src.stride(), dst.stride(), src_size, dst_size)
+    if vec > 1 and (src.data_ptr() % (vec * src_size) or dst.data_ptr() % (vec * dst_size)):
+        vec = 1
     code = _lib().copy_convert(
         src.data_ptr(), _DTYPE_CODE[src.dtype], dst.data_ptr(), _DTYPE_CODE[dst.dtype],
-        *n, *ss, *ds, float(scale), _build.stream_ptr(src.device),
+        *n, *ss, *ds, vec, float(scale), _build.stream_ptr(src.device),
     )
     _build.LAUNCHES["copy_convert"] += 1
     _build.check(code, "copy_convert")

@@ -9,6 +9,8 @@ plain versions.  The CUDA kernels themselves are held to the plain versions
 on the card (``cuda`` marker; ``chip_smoke.py`` does the same at full size).
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -144,6 +146,102 @@ def test_segment_table_rejects_windows_outside_the_block():
         segment_rows(((1, (0, 0), (1, 1)),), (6, 7))
 
 
+def _offsets(shape, strides) -> np.ndarray:
+    """Element offsets a strided window addresses, in row-major order."""
+    idx = np.indices(shape, dtype=np.int64).reshape(len(shape), -1)
+    return (np.asarray(strides, np.int64)[:, None] * idx).sum(0)
+
+
+_BLOCK = torch.zeros((4, 6, 7, 9))  # 4 stacked ranks of a (6, 7, 9) ghosted block
+WINDOWS = {
+    "z face": _BLOCK[:, 1:2],
+    "y face": _BLOCK[:, :, 1:2],
+    "x face": _BLOCK[..., 1:2],
+    "zy edge": _BLOCK[:, 1:2, 5:6],
+    "zx edge": _BLOCK[:, 1:2, :, 7:8],
+    "corner": _BLOCK[:, 5:6, 1:2, 1:2],
+    "interior": _BLOCK[:, 1:-1, 1:-1, 1:-1],
+    "whole": _BLOCK,
+    "z slab of 2": _BLOCK[:, 1:3],
+    "strided": _BLOCK[:, ::2, :, 1:5],
+    "transposed": _BLOCK.transpose(2, 3)[:, 1:3],
+    "one rank": _BLOCK[2:3, 1:2, :, :],
+}
+
+
+@pytest.mark.parametrize("dst_kind", ["contiguous", "window", "wider block"])
+@pytest.mark.parametrize("name", list(WINDOWS))
+def test_collapse_window_addresses_the_same_elements(name, dst_kind):
+    """The collapsed (shape, src strides, dst strides) of a window pair
+    address exactly the elements the 4-D window addresses, in the same order,
+    on both sides: a pack into a contiguous buffer, a copy into the same
+    window of another block, and one into a block of other strides."""
+    from repro_torch.kernels.pack.pack import collapse_window
+
+    src = WINDOWS[name]
+    dst_strides = {"contiguous": torch.empty(src.shape).stride(), "window": src.stride(),
+                   "wider block": (864, 108, 12, 1)}[dst_kind]
+    n, ss, ds = collapse_window(src.shape, src.stride(), dst_strides)
+    assert len(n) <= src.dim() and math.prod(n) == src.numel()
+    assert not any(d == 1 for d in n) or n == (1,)
+    np.testing.assert_array_equal(_offsets(n, ss), _offsets(src.shape, src.stride()))
+    np.testing.assert_array_equal(_offsets(n, ds), _offsets(src.shape, dst_strides))
+
+
+def test_collapse_window_merges_faces_to_one_run():
+    from repro_torch.kernels.pack.pack import collapse_window
+
+    xb = torch.empty((8, 258, 514, 512)).as_strided((8, 258, 514, 512), (258 * 514 * 512, 514 * 512, 512, 1))
+    pz, py = xb[:, 1:2], xb[:, :, 1:2]
+    assert collapse_window(pz.shape, pz.stride(), (514 * 512, 514 * 512, 512, 1)) == (
+        (8, 514 * 512), (258 * 514 * 512, 1), (514 * 512, 1))
+    assert collapse_window(py.shape, py.stride(), (258 * 512, 512, 512, 1)) == (
+        (8 * 258, 512), (514 * 512, 1), (512, 1))
+    assert collapse_window((1, 1), (5, 3), (1, 1)) == ((1,), (1,), (1,))
+
+
+@pytest.mark.parametrize("case,want", [
+    # (shape, src strides, dst strides, src ptr, dst ptr, src bytes, dst bytes)
+    (((8, 263168), (67897344, 1), (263168, 1), 4096, 8192, 4, 4), 4),  # pz face f32
+    (((8, 263168), (67897344, 1), (263168, 1), 4096, 8192, 4, 2), 4),  # f32 -> bf16 wire
+    (((8, 263168), (263168, 1), (67897344, 1), 4096, 8192, 2, 4), 4),  # bf16 wire -> f32
+    (((8, 263168), (263168, 1), (67897344, 1), 4096, 8192, 2, 2), 8),  # bf16 -> bf16
+    (((8, 263168), (67897344, 1), (263168, 1), 4100, 8192, 4, 4), 1),  # src base off by 4 B
+    (((8, 263168), (67897344, 1), (263168, 1), 4096, 8200, 4, 2), 4),  # bf16 side at 8 B
+    (((8, 263168), (67897344, 1), (263168, 1), 4096, 8196, 4, 2), 1),  # bf16 side off by 4 B
+    (((8, 263168), (263168, 1), (263168, 1), 4096, 8200, 2, 2), 1),  # bf16 -> bf16 needs 16 B
+    (((8, 263174), (263174, 1), (263174, 1), 4096, 8192, 2, 2), 1),  # bf16 rows 4 B apart
+    (((8, 497, 510), (67897344, 512, 1), (67897344, 512, 1), 4096, 8192, 4, 4), 4),  # run 510: tail
+    (((8, 497, 510), (67897344, 512, 1), (253470, 510, 1), 4096, 8192, 4, 4), 1),  # dst rows of 510
+    (((1, 497, 510), (7, 512, 1), (9, 512, 1), 4096, 8192, 4, 4), 4),  # a unit row dim's stride
+    (((2064, 512), (263168, 2), (512, 1), 4096, 8192, 4, 4), 1),  # strided run
+    (((2064, 3), (512, 1), (3, 1), 4096, 8192, 4, 4), 1),  # run shorter than a vector
+])
+def test_vector_width_only_where_alignment_allows(case, want):
+    from repro_torch.kernels.pack.pack import vector_width
+
+    assert vector_width(*case) == want
+
+
+@pytest.mark.parametrize("name", list(WINDOWS))
+def test_launch_layout_is_collapse_and_vector_width(name):
+    """The layout the wrapper caches per window is the collapsed window,
+    padded to 4 dims with unit dims of stride 0, and the vector width the
+    strides allow; with aligned base pointers that is :func:`vector_width`'s."""
+    from repro_torch.kernels.pack.pack import _launch_layout, collapse_window, vector_width
+
+    src = WINDOWS[name]
+    dst_strides = torch.empty(src.shape).stride()
+    n, ss, ds, vec = _launch_layout(src.shape, src.stride(), dst_strides, 4, 2)
+    cn, css, cds = collapse_window(src.shape, src.stride(), dst_strides)
+    pad = 4 - len(cn)
+    assert (n, ss, ds) == ((1,) * pad + cn, (0,) * pad + css, (0,) * pad + cds)
+    assert vec == vector_width(cn, css, cds, 4096, 8192, 4, 2)
+    hits = _launch_layout.cache_info().hits
+    assert _launch_layout(src.shape, src.stride(), dst_strides, 4, 2) == (n, ss, ds, vec)
+    assert _launch_layout.cache_info().hits == hits + 1  # computed once per layout
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -166,3 +264,33 @@ def test_cuda_kernels_equal_plain_versions(cuda, wire):
     buf = torch.empty((8, total), dtype=wire, device=cuda)
     kernel(xx, segment_table(segments, (6, 10, 5), cuda), buf)
     assert torch.equal(buf, gather_pack_ref(xx, segments, total=total, out_dtype=wire))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [
+    (slice(1, 2), slice(3, 40), slice(1, 31)),  # misaligned start: scalar path
+    (slice(1, 2), slice(3, 40), slice(0, 30)),  # aligned rows, run of 30: vectors + tail
+    (slice(None), slice(1, 2), slice(None)),  # y face, one run per (rank, z) row
+    (slice(2, 5), slice(None), slice(4, 12)),  # aligned run of 8, three row dims
+])
+def test_cuda_copy_convert_ragged_windows_bitwise(cuda, wire, window):
+    """Pack into a wire buffer, unpack into another block's window, and copy
+    window to window: bitwise equal to the plain versions."""
+    from repro_torch.kernels.pack.pack import copy_convert
+
+    x = torch.randn((8, 10, 44, 32), generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+    win = x[(slice(None), *window)]
+    for scale in (1.0, 8.0):
+        buf = torch.empty(win.shape, dtype=wire, device=cuda)
+        want = pack_2d_ref(win, out_dtype=wire, scale=scale)
+        assert torch.equal(copy_convert(win, buf, scale=scale), want)
+        back = torch.zeros_like(x)
+        ghost = back[(slice(None), *window)]
+        copy_convert(buf, ghost, scale=1.0 / scale)
+        assert torch.equal(ghost, unpack_2d_ref(want, out_dtype=torch.float32, scale=scale))
+        ghost.zero_()
+        assert not back.any()  # nothing written outside the window
+        other = torch.zeros((8, 10, 44, 32), dtype=wire, device=cuda)
+        copy_convert(win, other[(slice(None), *window)], scale=scale)
+        assert torch.equal(other[(slice(None), *window)], want)
