@@ -13,13 +13,16 @@ prints no result.  Every phase that fails ends the run with a non-zero exit.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (``copy_convert`` also on a misaligned
    window, its scalar path, and an aligned one with a ragged run, its
-   vector path's tail): the heat3d layout, a (4, 2) mesh over
+   vector path's tail; ``gather_pack`` also on ragged, misaligned, x-face
+   and corner segments; ``stencil27`` also into the strided interior window
+   of a block, the main path's form, with its ghosts left alone): the
+   heat3d layout, a (4, 2) mesh over
    (pz, py) with x whole and a global interior of (1024, 1024, 512) f32, so
    each rank's ghosted block is (258, 514, 512).  Print each kernel's time
    (CUDA events around one call, median, the pack kernels after an L2
-   flush; ``copy_convert`` also by ``torch.profiler``'s device time), its
-   plain version's time, its bound (bytes over 3.35 TB/s) and one PyTorch
-   call computing the same function.
+   flush; the pack kernels and ``stencil27`` also by ``torch.profiler``'s
+   device time), its plain version's time, its bound (bytes over 3.35
+   TB/s) and one PyTorch call computing the same function.
 3. Exchange matrix at full size: 5 strategies x 4 packers x coalesce on/off
    against the port's ``reference_exchange`` on the card (bitwise for the
    exact packers, within ``wire_tolerance`` for the lossy ones).
@@ -28,7 +31,8 @@ prints no result.  Every phase that fails ends the run with a non-zero exit.
    counts are zeroed just before and read just after; each kernel must have
    launched.  The cycles are checked against the same cycles run through
    packer ``slice`` with ``stencil27_ref`` on the card, and ``torch.profiler``
-   shows where each strategy's cycle goes (device time by kernel, idle share).
+   shows where each strategy's cycle goes (device time by kernel, idle share,
+   the ``direct_copy`` launches left: the stencil writes the interior itself).
 A. ``flash_attention`` against its plain version on the card at the shapes
    the serving path gives it (llama3-8b prefill, causal, bf16, S in
    {8, 128, 1000, 2048}; an MHA head_dim-64 case causal and not; an f32
@@ -840,7 +844,27 @@ def main() -> int:
             if not torch.equal(out, want):
                 fail(f"gather_pack {lay.hops and lay.hops[0][0]} total={lay.total} {wire}: err {err}")
             worst = max(worst, err)
-    print(f"gather_pack: {len(layouts)} layouts x (f32, bf16) wire exact", flush=True)
+    # segments off the main path: ragged rows one element past a vector, an
+    # x face (rows of one element), a corner cell, a whole face cut into chunks
+    segs, seg_total = [], 0
+    for start, shape in (((1, 3, 5), (1, 7, 507)), ((0, 0, 1), (3, 1, 1)),
+                         ((2, 1, 0), (2, 3, 512)), ((5, 2, 511), (4, 510, 1)),
+                         ((257, 513, 511), (1, 1, 1)), ((5, 0, 3), (1, 514, 509))):
+        segs.append((seg_total, start, shape))
+        seg_total += math.prod(shape)
+    table = pack_k.segment_table(segs, local, dev)
+    for wire, scale in ((torch.float32, 1.0), (torch.bfloat16, 8.0)):
+        out = torch.empty((ranks, seg_total), dtype=wire, device=dev)
+        pack_k.gather_pack(xb, table, out, scale=scale)
+        want = gather_pack_ref(xb, segs, total=seg_total, out_dtype=wire, scale=scale)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        if not torch.equal(out, want):
+            fail(f"gather_pack ragged/misaligned/edge segments {wire} scale={scale}: err {err}")
+        worst = max(worst, err)
+    del out, want
+    print(f"gather_pack: {len(layouts)} layouts x (f32, bf16) wire, and ragged, misaligned, "
+          f"x-face and corner segments (f32; bf16 at scale 8): exact", flush=True)
     lay = max(layouts, key=lambda la: (len(la.segments), la.total))
     table = pack_k.segment_table(lay.segments, local, dev)
     out = torch.empty((ranks, lay.total), dtype=torch.float32, device=dev)
@@ -857,11 +881,18 @@ def main() -> int:
     kernels["gather_pack"] = dict(
         name="gather_pack", route="cuda", source="src/repro_torch/kernels/csrc/pack.cu",
         replaces="src/repro/kernels/pack/pack.py:112", max_abs_err=worst,
-        ms=time_ms(torch, lambda: pack_k.gather_pack(xb, table, out), flush=flush),
+        ms=time_ms(torch, lambda: pack_k.gather_pack(xb, table, out), flush=flush, reps=21),
         plain_ms=time_ms(torch, lambda: gather_pack_ref(xb, lay.segments, total=lay.total), flush=flush),
         bound_ms=bound_ms(2 * ranks * lay.total * 4), bound_by="bytes",
-        library_ms=time_ms(torch, lambda: torch.index_select(xflat, 1, flat_idx), flush=flush),
-        segments=len(lay.segments), total=lay.total,
+        library_ms=time_ms(torch, lambda: torch.index_select(xflat, 1, flat_idx), flush=flush,
+                           reps=21),
+        device_ms=device_ms(torch, lambda: pack_k.gather_pack(xb, table, out), flush=flush),
+        library_device_ms=device_ms(torch, lambda: torch.index_select(xflat, 1, flat_idx),
+                                    flush=flush),
+        timing="ms, plain_ms, library_ms: CUDA events around one call after an L2 flush "
+               "(the wrapper's host time inside; ms and library_ms median of 21); device_ms, "
+               "library_device_ms: torch.profiler device time of the same calls",
+        segments=len(lay.segments), total=lay.total, chunks=table.shape[0],
     )
     print("gather_pack:", json.dumps(kernels["gather_pack"]), flush=True)
 
@@ -874,8 +905,15 @@ def main() -> int:
              ("z shell f32", xp[:, :3].contiguous(), wr),
              ("y shell f32", xp[:, :, :3].contiguous(), wr),
              ("jacobi f32", xp, w)]
-    for label, inp, weights in cases:
-        outk = torch.empty((ranks, *(s - 2 for s in inp.shape[1:])), dtype=inp.dtype, device=dev)
+    # the main path's form: into the interior window of a heat3d block
+    # (strided), whose ghosts must keep their values
+    block = torch.full((ranks, *local), -7.0, device=dev)
+    interior = block[:, 1:-1, 1:-1, :]
+    bitwise = {}
+    for label, inp, weights in [*cases, ("update f32, strided out", xp, wr)]:
+        strided = label.endswith("strided out")
+        outk = interior if strided else torch.empty(
+            (ranks, *(s - 2 for s in inp.shape[1:])), dtype=inp.dtype, device=dev)
         stencil27(inp, weights, outk)
         want = stencil27_ref(inp, weights)
         torch.cuda.synchronize()
@@ -884,10 +922,16 @@ def main() -> int:
         if not torch.isfinite(outk.float()).all() or not torch.allclose(
                 outk.float(), want.float(), rtol=rtol, atol=atol):
             fail(f"stencil27 {label} {tuple(inp.shape)}: max abs err {err}")
+        bitwise[label] = torch.equal(outk, want)
+        if strided:
+            outk.fill_(-7.0)
+            if not bool((block == -7.0).all()):
+                fail("stencil27 strided out: wrote outside the block's interior")
         worst = max(worst, err)
         print(f"stencil27 {label} {tuple(inp.shape)}: max abs err {err} "
-              f"(bitwise {torch.equal(outk, want)})", flush=True)
+              f"(bitwise {bitwise[label]})", flush=True)
         del outk, want
+    del cases
     outk = torch.empty((ranks, *(s - 2 for s in xp.shape[1:])), dtype=xp.dtype, device=dev)
     conv_w = wr.view(1, 1, 3, 3, 3)
     xp5 = xp.unsqueeze(1)
@@ -895,17 +939,26 @@ def main() -> int:
     torch.cuda.synchronize()
     conv_err = (conv.view_as(outk) - stencil27_ref(xp, wr)).abs().max().item()
     del conv
+    xbf = xp.to(torch.bfloat16)
+    outbf = torch.empty_like(outk, dtype=torch.bfloat16)
     kernels["stencil27"] = dict(
         name="stencil27", route="cuda", source="src/repro_torch/kernels/csrc/stencil27.cu",
         replaces="src/repro/kernels/stencil27/stencil27.py:67", max_abs_err=worst,
-        ms=time_ms(torch, lambda: stencil27(xp, wr, outk)),
+        ms=time_ms(torch, lambda: stencil27(xp, wr, interior)),
+        ms_contiguous_out=time_ms(torch, lambda: stencil27(xp, wr, outk)),
+        ms_bf16=time_ms(torch, lambda: stencil27(xbf, wr, outbf)),
+        device_ms=device_ms(torch, lambda: stencil27(xp, wr, interior), flush=flush, reps=3),
         plain_ms=time_ms(torch, lambda: stencil27_ref(xp, wr), reps=3),
         bound_ms=bound_ms((xp.numel() + outk.numel()) * 4), bound_by="bytes",
+        bound_ms_bf16=bound_ms((xp.numel() + outk.numel()) * 2),
         library_ms=time_ms(torch, lambda: F.conv3d(xp5, conv_w), reps=3),
-        library_max_abs_err=conv_err, shape=list(xp.shape),
+        library_max_abs_err=conv_err, shape=list(xp.shape), bitwise=bitwise,
+        timing="ms: CUDA events around one call into the interior window of a heat3d block "
+               "(the main path's strided out); ms_contiguous_out, ms_bf16: the same into a "
+               "contiguous out; device_ms: torch.profiler device time of the strided call",
     )
     print("stencil27:", json.dumps(kernels["stencil27"]), flush=True)
-    del xp, xp5, outk, cases, x, xb
+    del xp, xp5, outk, xbf, outbf, block, interior, x, xb
     torch.cuda.empty_cache()
 
     # -- 3. exchange matrix at full size ------------------------------------
@@ -990,9 +1043,14 @@ def main() -> int:
         top = ", ".join(f"{short_kernel_name(k['name'])} x{k['launches_per_cycle']:g} "
                         f"{k['us_per_cycle']:.0f}us"
                         for k in b["kernels"][:6])
+        # the stencil writes the block's interior itself: no copy back
+        # (the overlap schedule still copies its pieces in and out)
+        copies = [k for k in b["kernels"] if short_kernel_name(k["name"]) == "direct_copy"]
+        b["direct_copy_us_per_cycle"] = sum(k["us_per_cycle"] for k in copies)
         print(f"heat3d {name} breakdown: window {b['window_us_per_cycle']:.0f} us/cycle, "
               f"device busy {b['busy_us_per_cycle']:.0f} us, idle share {b['idle_share']:.3f}; "
-              f"{top}", flush=True)
+              f"{top}; direct_copy {sum(k['launches_per_cycle'] for k in copies):g} a cycle, "
+              f"{b['direct_copy_us_per_cycle']:.0f} us", flush=True)
 
     # -- A. flash_attention against its plain version ------------------------
     del drv, plain, ref_x, interior, weights, update, dom, mesh

@@ -32,10 +32,20 @@
 // narrower type would give an f32 side two float4 a thread, 32 bytes apart,
 // and half-sector stores); otherwise each thread moves one element through
 // the run strides.  No per-element % or /.
-// The segment table of gather_pack is a device tensor that a persistent
-// plan uploads once; each block copies it to shared memory and every
-// thread finds its segment by binary search over the offsets.  There is no
-// size budget: the TPU kernel's 4 MB VMEM limit has no counterpart here.
+// gather_pack reads a work table that the wrapper builds once per layout
+// (kernels/pack/pack.py work_rows) and a persistent plan uploads once.
+// Each segment window is collapsed like copy_convert's (a face to one run,
+// a py face of a heat3d block to rows of 512) and cut into chunks of one
+// segment's rows: wire offset, source offset, row count, run, source row
+// stride, a power-of-two count of threads a row, and the largest vector
+// (8, 4, 2 or 1 elements) that every row start of the chunk is aligned to
+// on both sides.  Chunks are about 4096 elements, so the pz face of the
+// heat3d block splits into 65 blocks a rank and a small edge or corner
+// segment is a chunk of its own.  blockIdx.x is a chunk, blockIdx.y the
+// rank.  Threads map to (row, lane) by a shift and a mask; a row moves 16
+// bytes of the wider type a thread where the chunk and the launch are
+// aligned (else one element a thread), four vectors loaded before any is
+// stored.  No table search and no division.
 //
 // Rounding: f32 -> bf16 is round-to-nearest-even (__float2bfloat16_rn), as
 // jnp's and torch's casts are.  Every value is taken to f32 and multiplied
@@ -138,44 +148,60 @@ __global__ void copy_convert_kernel(const Tin* __restrict__ src, Tout* __restric
   }
 }
 
-// table: nseg rows of 7 int64 = (offset, start[3], shape[3]) in local
-// coordinates, local dims padded to 3 (leading dims of extent 1).
-constexpr int kSegCols = 7;
-
-template <typename Tin, typename Tout>
-__global__ void gather_pack_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
-                                   const int64_t* __restrict__ table, int nseg,
-                                   int64_t total, int64_t rank_stride,
-                                   int64_t st0, int64_t st1, float scale) {
-  extern __shared__ int64_t tab[];
-  for (int i = threadIdx.x; i < nseg * kSegCols; i += blockDim.x) tab[i] = table[i];
-  __syncthreads();
-  const int64_t r = blockIdx.y;
-  const Tin* xr = x + r * rank_stride;
-  Tout* outr = out + r * total;
-  const int64_t step = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total; e += step) {
-    int lo = 0, hi = nseg - 1;  // last segment whose offset <= e
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (tab[mid * kSegCols] <= e) lo = mid; else hi = mid - 1;
-    }
-    const int64_t* s = tab + lo * kSegCols;
-    int64_t rem = e - s[0];
-    const int64_t i2 = rem % s[6]; rem /= s[6];
-    const int64_t i1 = rem % s[5];
-    const int64_t i0 = rem / s[5];
-    const int64_t src = (s[1] + i0) * st0 + (s[2] + i1) * st1 + (s[3] + i2);
-    outr[e] = from_f32<Tout>(to_f32(xr[src]) * scale);
-  }
-}
-
+// work table: nchunk rows of kWorkCols int64 = (wire offset, source offset,
+// rows, run, source row stride, log2 threads a row, alignment); rows of a
+// chunk lie end to end in the wire (destination row stride = run).
+constexpr int kWorkCols = 7;
 constexpr int kThreads = 256;
+constexpr int kUnroll = 4;  // vectors a thread loads before it stores them
 
-inline int blocks_for(int64_t n, int64_t cap) {
-  int64_t b = (n + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return (int)(b < cap ? b : cap);
+template <typename Tin, typename Tout, int V>
+__global__ void __launch_bounds__(kThreads)
+gather_pack_kernel(const Tin* __restrict__ x, Tout* __restrict__ out,
+                   const int64_t* __restrict__ work, int64_t total, int64_t rank_stride,
+                   int vec_ok, float scale) {
+  const int64_t* c = work + (int64_t)blockIdx.x * kWorkCols;
+  const int rows = (int)c[2], run = (int)c[3], shift = (int)c[5];
+  const int64_t srow = c[4];
+  const Tin* xs = x + blockIdx.y * rank_stride + c[1];
+  Tout* od = out + blockIdx.y * total + c[0];
+  const int tpr = 1 << shift, lane = threadIdx.x & (tpr - 1);
+  const int row_step = kThreads >> shift;
+  const int k0 = threadIdx.x >> shift;
+  if (V > 1 && vec_ok && c[6] % V == 0) {
+    // slots (row k, vector e) of this thread in order, kUnroll loads
+    // issued before the first store
+    const int nvec = run / V;
+    int k = lane < nvec ? k0 : rows, e = lane;
+    while (k < rows) {
+      float f[kUnroll][V];
+      Tout* dst[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        dst[u] = nullptr;
+        if (k < rows) {
+          load_vec<V>(xs + k * srow + e * V, f[u]);
+          dst[u] = od + (int64_t)k * run + e * V;
+          e += tpr;
+          if (e >= nvec) { e = lane; k += row_step; }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (dst[u] == nullptr) continue;
+#pragma unroll
+        for (int j = 0; j < V; ++j) f[u][j] *= scale;
+        store_vec<V>(dst[u], f[u]);
+      }
+    }
+    for (k = k0; k < rows; k += row_step)  // the scalar tail of each row
+      for (e = nvec * V + lane; e < run; e += tpr)
+        od[(int64_t)k * run + e] = from_f32<Tout>(to_f32(xs[k * srow + e]) * scale);
+  } else {
+    for (int k = k0; k < rows; k += row_step)
+      for (int e = lane; e < run; e += tpr)
+        od[(int64_t)k * run + e] = from_f32<Tout>(to_f32(xs[k * srow + e]) * scale);
+  }
 }
 
 template <typename Tin, typename Tout, int V>
@@ -214,14 +240,19 @@ int launch_copy(const void* src, void* dst, const Rows& rw, int64_t run, int64_t
 }
 
 template <typename Tin, typename Tout>
-void launch_gather(const void* x, void* out, const void* table, int nseg, int64_t total,
-                   int ranks, int64_t rank_stride, int64_t st0, int64_t st1, float scale,
-                   cudaStream_t stream) {
-  dim3 grid(blocks_for(total, 1 << 16), ranks);
-  size_t smem = (size_t)nseg * kSegCols * sizeof(int64_t);
-  gather_pack_kernel<Tin, Tout><<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tin*>(x), static_cast<Tout*>(out),
-      static_cast<const int64_t*>(table), nseg, total, rank_stride, st0, st1, scale);
+int launch_gather(const void* x, void* out, const void* work, int nchunk, int64_t total,
+                  int ranks, int64_t rank_stride, int vec_ok, float scale, cudaStream_t stream) {
+  constexpr int WIDE = 16 / (sizeof(Tin) > sizeof(Tout) ? sizeof(Tin) : sizeof(Tout));
+  // the wrapper vouched for the launch's alignment; refuse what it cannot carry
+  if (vec_ok && (reinterpret_cast<uintptr_t>(x) % (WIDE * sizeof(Tin)) ||
+                 reinterpret_cast<uintptr_t>(out) % (WIDE * sizeof(Tout)) ||
+                 rank_stride % WIDE || total % WIDE))
+    return (int)cudaErrorMisalignedAddress;
+  dim3 grid(nchunk, ranks);
+  gather_pack_kernel<Tin, Tout, WIDE><<<grid, kThreads, 0, stream>>>(
+      static_cast<const Tin*>(x), static_cast<Tout*>(out), static_cast<const int64_t*>(work),
+      total, rank_stride, vec_ok, scale);
+  return 0;
 }
 
 }  // namespace
@@ -258,24 +289,26 @@ int copy_convert(const void* src, int src_dtype, void* dst, int dst_dtype,
 }
 
 // out[r, :total] = every segment window of x[r] laid end to end, for all
-// `ranks` stacked blocks of `rank_stride` elements.  Local block strides
-// are (st0, st1, 1) after padding the local dims to 3.
-int gather_pack(const void* x, int x_dtype, void* out, int out_dtype, const void* table,
-                int nseg, int64_t total, int ranks, int64_t rank_stride, int64_t st0,
-                int64_t st1, float scale, void* stream) {
+// `ranks` stacked blocks of `rank_stride` elements, through the (nchunk, 7)
+// work table.  vec_ok: both bases, rank_stride and total are aligned to 16
+// bytes of the wider type (then each chunk aligned to it moves vectors).
+int gather_pack(const void* x, int x_dtype, void* out, int out_dtype, const void* work,
+                int nchunk, int64_t total, int ranks, int64_t rank_stride, int vec_ok,
+                float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (total > 0 && ranks > 0) {
-    if (x_dtype == F32 && out_dtype == F32)
-      launch_gather<float, float>(x, out, table, nseg, total, ranks, rank_stride, st0, st1, scale, st);
-    else if (x_dtype == F32 && out_dtype == BF16)
-      launch_gather<float, __nv_bfloat16>(x, out, table, nseg, total, ranks, rank_stride, st0, st1, scale, st);
-    else if (x_dtype == BF16 && out_dtype == F32)
-      launch_gather<__nv_bfloat16, float>(x, out, table, nseg, total, ranks, rank_stride, st0, st1, scale, st);
-    else if (x_dtype == BF16 && out_dtype == BF16)
-      launch_gather<__nv_bfloat16, __nv_bfloat16>(x, out, table, nseg, total, ranks, rank_stride, st0, st1, scale, st);
-    else return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (nchunk <= 0 || ranks <= 0) return (int)cudaGetLastError();
+  int err;
+  if (x_dtype == F32 && out_dtype == F32)
+    err = launch_gather<float, float>(x, out, work, nchunk, total, ranks, rank_stride, vec_ok, scale, st);
+  else if (x_dtype == F32 && out_dtype == BF16)
+    err = launch_gather<float, __nv_bfloat16>(x, out, work, nchunk, total, ranks, rank_stride, vec_ok, scale, st);
+  else if (x_dtype == BF16 && out_dtype == F32)
+    err = launch_gather<__nv_bfloat16, float>(x, out, work, nchunk, total, ranks, rank_stride, vec_ok, scale, st);
+  else if (x_dtype == BF16 && out_dtype == BF16)
+    err = launch_gather<__nv_bfloat16, __nv_bfloat16>(x, out, work, nchunk, total, ranks, rank_stride, vec_ok, scale, st);
+  else
+    return (int)cudaErrorInvalidValue;
+  return err ? err : (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -7,7 +7,9 @@
   unpack writes straight into the ghost window.
 * :func:`gather_pack` replaces ``_gather_pack_kernel`` behind
   ``gather_pack_1d``.  One launch fills the ``(R, total)`` coalesced wire
-  buffer of all R stacked ranks from a device-resident segment table.
+  buffer of all R stacked ranks from a device-resident work table: each
+  segment collapsed (:func:`collapse_window`) and cut into chunks of rows
+  (:func:`work_rows`), built once per layout.
 
 Both are bound by bytes (one read and one write per element); the source
 notes in ``csrc/pack.cu`` say what the design does about it.  They accept
@@ -33,11 +35,16 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "copy_convert": [_P, _I, _P, _I] + [_L] * 12 + [_I, _F, _P],
-    "gather_pack": [_P, _I, _P, _I, _P, _I, _L, _I, _L, _L, _L, _F, _P],
+    "gather_pack": [_P, _I, _P, _I, _P, _I, _L, _I, _L, _I, _F, _P],
 }
 
-#: shared-memory rows of the segment table one gather launch may carry
-MAX_SEGMENTS = 512
+#: wire elements one gather chunk (one block of 256 threads) covers at most:
+#: the heat3d pz face, one run of 263168, becomes 65 chunks a rank
+CHUNK = 4096
+#: threads of one gather block; a chunk's rows get a power of two of them each
+_GATHER_THREADS = 256
+#: columns of a work-table row (see :func:`work_rows`)
+WORK_COLS = 7
 
 
 def _lib():
@@ -162,10 +169,80 @@ def segment_rows(segments: Sequence, local_shape: Sequence[int]) -> list[list[in
     return rows
 
 
+def _aligned(*values: int) -> int:
+    """The largest of 8, 4, 2 and 1 that divides every value."""
+    a = 8
+    while a > 1 and any(v % a for v in values):
+        a //= 2
+    return a
+
+
+@functools.lru_cache(maxsize=256)
+def work_rows(rows: tuple[tuple[int, ...], ...], local_shape: tuple[int, ...],
+              chunk_elems: int = CHUNK) -> tuple[tuple[int, ...], ...]:
+    """The gather kernel's work table of a layout, once per layout: each
+    7-column row of :func:`segment_rows` (``rows``, as tuples) collapsed
+    against the block's strides and the contiguous wire
+    (:func:`collapse_window`) into rows of a run, then cut into chunks of
+    at most ``chunk_elems`` elements that never span two segments.  A chunk
+    is ``(wire offset, source offset, rows, run, source row stride, log2
+    threads a row, alignment)``: row k reads ``run`` elements from source
+    offset + k * stride and writes them to wire offset + k * run, and the
+    alignment is the largest of 8, 4, 2, 1 elements dividing both offsets
+    (and, for more than one row, the stride and the run), so a chunk moves
+    vectors of that many elements where the launch's bases allow.  A run
+    longer than a chunk is cut into pieces of ``chunk_elems`` (a multiple of
+    8, so the pieces keep the run's alignment).  Chunks are in wire order
+    and tile ``[0, total)``."""
+    if chunk_elems <= 0 or chunk_elems % 8:
+        raise ValueError(f"gather_pack: chunks of {chunk_elems} elements (a multiple of 8)")
+    local = (1,) * (3 - len(local_shape)) + tuple(local_shape)
+    strides = (local[1] * local[2], local[2], 1)
+    work: list[tuple[int, ...]] = []
+
+    def chunk(wire: int, src: int, nrows: int, run: int, srow: int) -> None:
+        tpr = 1
+        while tpr < _GATHER_THREADS and 4 * tpr < run:
+            tpr *= 2
+        align = _aligned(wire, src, *((srow, run) if nrows > 1 else ()))
+        work.append((wire, src, nrows, run, srow, tpr.bit_length() - 1, align))
+
+    for off, *rest in rows:
+        start, shape = rest[:3], tuple(rest[3:])
+        src = sum(b * s for b, s in zip(start, strides))
+        n, ss, _ = collapse_window(shape, strides, (shape[1] * shape[2], shape[2], 1))
+        if ss[-1] != 1:  # the innermost dim left is strided: runs of one element
+            n, ss = (*n, 1), (*ss, 1)
+        *outer, run = n
+        # every row start of the segment, as (source offset, rows, row stride)
+        if not outer:
+            groups = [(src, 1, 0)]
+        elif len(outer) == 1:
+            groups = [(src, outer[0], ss[0])]
+        else:
+            groups = [(src + i * ss[0], outer[1], ss[1]) for i in range(outer[0])]
+        wire = off
+        for base, nrows, srow in groups:
+            if run >= chunk_elems:
+                for k in range(nrows):
+                    for p in range(0, run, chunk_elems):
+                        piece = min(chunk_elems, run - p)
+                        chunk(wire, base + k * srow + p, 1, piece, 0)
+                        wire += piece
+            else:
+                per = chunk_elems // run
+                for k in range(0, nrows, per):
+                    g = min(per, nrows - k)
+                    chunk(wire, base + k * srow, g, run, srow)
+                    wire += g * run
+    return tuple(work)
+
+
 def segment_table(segments: Sequence, local_shape: Sequence[int], device) -> torch.Tensor:
-    """The device-resident segment table :func:`gather_pack` reads (what a
-    persistent plan uploads once)."""
-    return torch.tensor(segment_rows(segments, local_shape), dtype=torch.int64,
+    """The device-resident work table :func:`gather_pack` reads (what a
+    persistent plan uploads once; the host side is cached per layout)."""
+    rows = tuple(map(tuple, segment_rows(segments, local_shape)))
+    return torch.tensor(work_rows(rows, tuple(local_shape)), dtype=torch.int64,
                         device=device)
 
 
@@ -177,26 +254,33 @@ def gather_pack(
     scale: float = 1.0,
 ) -> torch.Tensor:
     """Fill ``out`` (R, total) from the contiguous ``x`` (R, *local) through
-    the (nseg, 7) int64 ``table`` of :func:`segment_table`.  Returns ``out``."""
+    the (nchunk, 7) int64 work ``table`` of :func:`segment_table`, built for
+    ``x``'s local shape.  Returns ``out``."""
     _check_cuda("gather_pack", x, table, out)
     if not (x.is_contiguous() and out.is_contiguous() and table.is_contiguous()):
         raise ValueError("gather_pack: x, table and out must be contiguous")
-    if table.dtype != torch.int64 or table.dim() != 2 or table.shape[1] != 7:
-        raise ValueError(f"gather_pack: table must be (nseg, 7) int64, got "
+    if table.dtype != torch.int64 or table.dim() != 2 or table.shape[1] != WORK_COLS:
+        raise ValueError(f"gather_pack: table must be (nchunk, {WORK_COLS}) int64, got "
                          f"{tuple(table.shape)} {table.dtype}")
-    nseg = table.shape[0]
-    if not 1 <= nseg <= MAX_SEGMENTS:
-        raise ValueError(f"gather_pack: {nseg} segments (1..{MAX_SEGMENTS})")
+    nchunk = table.shape[0]
+    if not 1 <= nchunk < 2**31:
+        raise ValueError(f"gather_pack: {nchunk} chunks (1..2**31 - 1)")
     if not 2 <= x.dim() <= 4:
         raise ValueError("gather_pack: x must be (R, *local) with 1..3 local dims")
-    local = (1,) * (4 - x.dim()) + tuple(x.shape[1:])
-    ranks = x.shape[0]
+    if x.dtype not in _DTYPE_CODE or out.dtype not in _DTYPE_CODE:
+        raise TypeError(f"gather_pack: {x.dtype} -> {out.dtype} (f32/bf16 only)")
+    ranks, rank_stride = x.shape[0], math.prod(x.shape[1:])
     if out.dim() != 2 or out.shape[0] != ranks or not 1 <= ranks <= 65535:
         raise ValueError(f"gather_pack: out {tuple(out.shape)} for {ranks} ranks")
+    total = out.shape[1]
+    xs, os_ = x.element_size(), out.element_size()
+    wide = 16 // max(xs, os_)
+    vec_ok = (x.data_ptr() % (wide * xs) == 0 and out.data_ptr() % (wide * os_) == 0
+              and rank_stride % wide == 0 and total % wide == 0)
     code = _lib().gather_pack(
         x.data_ptr(), _DTYPE_CODE[x.dtype], out.data_ptr(), _DTYPE_CODE[out.dtype],
-        table.data_ptr(), nseg, out.shape[1], ranks, math.prod(local),
-        local[1] * local[2], local[2], float(scale), _build.stream_ptr(x.device),
+        table.data_ptr(), nchunk, total, ranks, rank_stride, int(vec_ok), float(scale),
+        _build.stream_ptr(x.device),
     )
     _build.LAUNCHES["gather_pack"] += 1
     _build.check(code, "gather_pack")

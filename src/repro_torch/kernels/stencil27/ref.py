@@ -9,8 +9,10 @@ from __future__ import annotations
 import torch
 
 
-def stencil27_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: ghosted (..., Z+2, Y+2, X+2); w: (3, 3, 3).  Returns (..., Z, Y, X)."""
+def stencil27_ref(x: torch.Tensor, w: torch.Tensor, *,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
+    """x: ghosted (..., Z+2, Y+2, X+2); w: (3, 3, 3).  Returns (..., Z, Y, X),
+    copied into ``out`` (a view of that shape) when given."""
     zi, yi, xi = (s - 2 for s in x.shape[-3:])
     wf = w.to(device=x.device, dtype=torch.float32)
     acc = torch.zeros((*x.shape[:-3], zi, yi, xi), dtype=torch.float32, device=x.device)
@@ -19,7 +21,9 @@ def stencil27_ref(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             for dx in range(3):
                 sub = x[..., dz:dz + zi, dy:dy + yi, dx:dx + xi].to(torch.float32)
                 acc = acc + wf[dz, dy, dx] * sub
-    return acc.to(x.dtype)
+    if out is None:
+        return acc.to(x.dtype)
+    return out.copy_(acc.to(x.dtype))
 
 
 def jacobi_weights(dtype=torch.float32, device="cpu") -> torch.Tensor:

@@ -4,11 +4,14 @@ The port's ``pack_2d_ref``/``unpack_2d_ref``/``gather_pack_ref`` are held
 BITWISE to JAX ``pack_2d``/``unpack_2d``/``gather_pack_1d`` run in the
 Pallas interpreter, on the shapes of ``tests/kernels/test_pack.py`` and on
 the coalesced wire layouts of real halo schedules, with f32 and bf16 wire
-and scale 1 and 8.  The dispatching ``ops`` wrappers on CPU tensors are the
-plain versions.  The CUDA kernels themselves are held to the plain versions
+and scale 1 and 8.  The gather kernel's work table is walked in plain
+PyTorch as the kernel walks it (chunk, row, vector part, scalar tail) on
+the heat3d schedules' layouts and held bitwise to both.  The dispatching
+``ops`` wrappers on CPU tensors are the plain versions.  The CUDA kernels themselves are held to the plain versions
 on the card (``cuda`` marker; ``chip_smoke.py`` does the same at full size).
 """
 
+import functools
 import math
 
 import jax.numpy as jnp
@@ -20,6 +23,7 @@ from repro.core.halo import HaloSpec as JHaloSpec
 from repro.core.halo import fused_slab_table, sequential_message_groups as j_seq
 from repro.core.transport import get_packer as j_get_packer, schedule_layouts as j_layouts
 from repro.kernels.pack import gather_pack_1d, pack_2d, unpack_2d
+from repro_torch.core.mesh import make_mesh
 from repro_torch.kernels.pack import (
     gather_pack,
     gather_pack_ref,
@@ -28,6 +32,8 @@ from repro_torch.kernels.pack import (
     unpack_2d_ref,
     unpack_slab,
 )
+from repro_torch.kernels.pack.pack import CHUNK, segment_rows, work_rows
+from repro_torch.stencil import Domain, StrategyConfig, make_driver
 
 torch.set_num_threads(1)
 
@@ -144,6 +150,134 @@ def test_segment_table_rejects_windows_outside_the_block():
         segment_rows(((0, (4, 0), (3, 4)),), (6, 7))
     with pytest.raises(ValueError):
         segment_rows(((1, (0, 0), (1, 1)),), (6, 7))
+
+
+def _walk_work_table(x, table, total, *, out_dtype, scale):
+    """The gather kernel's walk of a work table in plain PyTorch: chunk by
+    chunk, row by row, the vector part and then the scalar tail (vectors of
+    16 bytes of the wider type where the launch and the chunk are aligned to
+    them, as the wrapper and the kernel decide).  Asserts what the kernel
+    trusts: each read lies in the rank's block, each vector row starts
+    aligned on both sides, and the rows cover the wire once, in order."""
+    ranks = x.shape[0]
+    flat = x.reshape(ranks, -1)
+    block = flat.shape[1]
+    wide = 16 // max(x.element_size(), torch.empty((), dtype=out_dtype).element_size())
+    vec_ok = block % wide == 0 and total % wide == 0  # torch's bases are 16-byte aligned
+    out = torch.empty((ranks, total), dtype=out_dtype)
+    at = 0
+    for wire, src, rows, run, srow, shift, align in table:
+        assert 0 <= shift <= 8 and align in (1, 2, 4, 8)
+        vec = vec_ok and align % wide == 0
+        for k in range(rows):
+            s, d = src + k * srow, wire + k * run
+            assert d == at and 0 <= s and s + run <= block
+            cut = run // wide * wide if vec else 0
+            assert not vec or (s % wide == 0 and d % wide == 0)
+            for lo, hi in ((0, cut), (cut, run)):
+                out[:, d + lo:d + hi] = pack_2d_ref(flat[:, s + lo:s + hi],
+                                                    out_dtype=out_dtype, scale=scale)
+            at += run
+    assert at == total
+    return out
+
+
+#: heat3d-shaped: a (4, 2) mesh over (pz, py), x whole; local blocks
+#: (6, 8, X) ghosted, X = 8 (rows aligned to vectors) or 6 (some not)
+HEAT_STRATEGIES = {"persistent": 1, "partitioned": 4, "partitioned, 3 parts": 3, "fused": 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _heat_case(strategy: str, x_len: int):
+    """The local block shape, 8 stacked ranks of data and the coalesced
+    layouts (as segment tuples) of one heat3d schedule."""
+    mesh = make_mesh((4, 2), ("pz", "py"), device="cpu")
+    dom = Domain(mesh, (16, 12, x_len), ("pz", "py", None))
+    drv = make_driver(StrategyConfig(name=strategy.split(",")[0], packer="cuda",
+                                     n_parts=HEAT_STRATEGIES[strategy]),
+                      mesh, dom.halo_spec, ndim=3)
+    layouts = [(tuple((s.offset, s.src_start, s.shape) for s in lay.segments), lay.total)
+               for lay in drv.wire_layouts(dom.random(0))]
+    x = np.random.default_rng(x_len).normal(size=(8, *dom.local_ghosted)).astype(np.float32)
+    return dom.local_ghosted, x, layouts
+
+
+@functools.lru_cache(maxsize=None)
+def _heat_pallas(strategy: str, x_len: int, wire: str, scale: float) -> np.ndarray:
+    """JAX ``gather_pack_1d`` (interpreter) of rank 0's block over every
+    layout of the schedule at once: the segments laid end to end give the
+    layouts' wires laid end to end (one compile a schedule)."""
+    _, x, layouts = _heat_case(strategy, x_len)
+    segments, base = [], 0
+    for segs, total in layouts:
+        segments += [(base + off, start, shape) for off, start, shape in segs]
+        base += total
+    return _np32(gather_pack_1d(jnp.asarray(x[0]), segments=tuple(segments), total=base,
+                                out_dtype=DTYPES[wire][0], scale=scale, interpret=True))
+
+
+@pytest.mark.parametrize("chunk", [CHUNK, 16])
+@pytest.mark.parametrize("x_len", [8, 6])
+@pytest.mark.parametrize("strategy", list(HEAT_STRATEGIES))
+def test_work_table_walk_equals_ref_and_pallas_kernel(strategy, x_len, chunk):
+    """Every coalesced layout of the heat3d schedules, f32 wire and bf16 wire
+    at scale 8: the work table walked as the kernel walks it is bitwise
+    equal to ``gather_pack_ref`` on 8 stacked ranks and to the JAX
+    ``gather_pack_1d`` (Pallas interpreter) on rank 0.  Chunks of 16
+    elements cut the faces into pieces and row groups."""
+    local, xn, layouts = _heat_case(strategy, x_len)
+    x = torch.from_numpy(xn)
+    for wire, scale in (("float32", 1.0), ("bfloat16", 8.0)):
+        walked = []
+        for segments, total in layouts:
+            rows = tuple(map(tuple, segment_rows(segments, local)))
+            table = work_rows(rows, local, chunk)
+            assert all(r * n <= max(chunk, n) for _, _, r, n, *_ in table)
+            got = _walk_work_table(x, table, total, out_dtype=DTYPES[wire][1], scale=scale)
+            assert torch.equal(got, gather_pack_ref(x, segments, total=total,
+                                                    out_dtype=DTYPES[wire][1], scale=scale))
+            walked.append(got[0])
+        np.testing.assert_array_equal(_np32(torch.cat(walked)),
+                                      _heat_pallas(strategy, x_len, wire, scale))
+
+
+def test_work_table_cuts_heat3d_faces():
+    """At the heat3d size ((258, 514, 512) ghosted blocks): the pz face is one
+    run of 263168, cut into 65 chunks (64 of 4096 and one of 1024); a py
+    face is 258 rows of 512 at the block's plane stride, 8 rows a chunk;
+    every chunk of both is aligned to 8 elements."""
+    local = (258, 514, 512)
+    pz = work_rows(tuple(map(tuple, segment_rows(((0, (1, 0, 0), (1, 514, 512)),), local))), local)
+    assert len(pz) == 65 and {c[3] for c in pz} == {4096, 1024}
+    assert all(c[2] == 1 and c[5] == 8 and c[6] == 8 for c in pz)
+    assert pz[0][:2] == (0, 514 * 512) and pz[-1][0] == 64 * 4096
+    py = work_rows(tuple(map(tuple, segment_rows(((0, (0, 1, 0), (258, 1, 512)),), local))), local)
+    assert len(py) == 33 and py[0] == (0, 512, 8, 512, 514 * 512, 7, 8)
+    assert py[-1][2] == 2 and sum(c[2] for c in py) == 258
+
+
+def test_work_table_edge_and_strided_segments():
+    """Segments that collapse to rows of one element (an x face: runs
+    strided in the source), a corner, and a window starting one element
+    past a vector: the walk still equals ``gather_pack_ref`` bitwise, the
+    strided and misaligned chunks are scalar (alignment 1), and a chunk
+    size that is not a multiple of 8 is refused."""
+    local = (5, 6, 12)
+    segments = ((0, (1, 1, 0), (3, 4, 1)), (12, (4, 5, 11), (1, 1, 1)),
+                (13, (2, 0, 1), (2, 6, 9)), (121, (0, 0, 0), (5, 6, 12)))
+    total = 121 + 360
+    x = torch.from_numpy(np.random.default_rng(5).normal(size=(3, *local)).astype(np.float32))
+    rows = tuple(map(tuple, segment_rows(segments, local)))
+    for chunk in (CHUNK, 24):
+        table = work_rows(rows, local, chunk)
+        assert table[0][3] == 1 and table[0][6] == 1  # the x face: runs of one, strided rows
+        assert all(c[6] == 1 for c in table if 12 <= c[0] < 121)
+        for wire in ("float32", "bfloat16"):
+            got = _walk_work_table(x, table, total, out_dtype=DTYPES[wire][1], scale=8.0)
+            assert torch.equal(got, gather_pack_ref(x, segments, total=total,
+                                                    out_dtype=DTYPES[wire][1], scale=8.0))
+    with pytest.raises(ValueError):
+        work_rows(rows, local, 12)
 
 
 def _offsets(shape, strides) -> np.ndarray:
@@ -294,3 +428,36 @@ def test_cuda_copy_convert_ragged_windows_bitwise(cuda, wire, window):
         other = torch.zeros((8, 10, 44, 32), dtype=wire, device=cuda)
         copy_convert(win, other[(slice(None), *window)], scale=scale)
         assert torch.equal(other[(slice(None), *window)], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire,scale", [(torch.float32, 1.0), (torch.bfloat16, 8.0),
+                                        (torch.float32, 8.0)])
+@pytest.mark.parametrize("chunk", [CHUNK, 24])
+def test_cuda_gather_pack_ragged_misaligned_edge_segments(cuda, wire, scale, chunk):
+    """``gather_pack`` bitwise against ``gather_pack_ref`` on segments whose
+    rows are ragged (runs of 29 and 33) and start one element past a vector,
+    collapse to rows of one element (an x face) or to one corner cell, beside
+    a whole-face run cut into chunks; on 8 stacked ranks, and on 3 whose
+    blocks start one element past a vector (no vectors in the launch)."""
+    from repro_torch.kernels.pack.pack import gather_pack as kernel
+
+    local = (6, 40, 36)
+    segments = ((0, (1, 3, 5), (1, 7, 29)), (203, (0, 0, 1), (3, 1, 1)),
+                (206, (2, 1, 0), (2, 3, 36)), (422, (5, 0, 3), (1, 40, 33)),
+                (1742, (1, 2, 35), (4, 38, 1)), (1894, (5, 39, 35), (1, 1, 1)),
+                (1895, (0, 0, 0), (1, 40, 36)))
+    total = 1895 + 1440
+    rows = tuple(map(tuple, segment_rows(segments, local)))
+    table = torch.tensor(work_rows(rows, local, chunk), dtype=torch.int64, device=cuda)
+    for ranks, shift in ((8, 0), (3, 1)):
+        # shift 1: blocks one element past an aligned base, so the wrapper
+        # refuses vectors for the whole launch and every chunk moves scalars
+        n = ranks * math.prod(local)
+        x = torch.empty(n + shift, device=cuda)[shift:].view(ranks, *local)
+        x.copy_(torch.randn((ranks, *local), generator=torch.Generator(cuda).manual_seed(3),
+                            device=cuda))
+        out = torch.empty((ranks, total), dtype=wire, device=cuda)
+        kernel(x, table, out, scale=scale)
+        assert torch.equal(out, gather_pack_ref(x, segments, total=total, out_dtype=wire,
+                                                scale=scale))
