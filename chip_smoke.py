@@ -57,12 +57,23 @@ B. Serving llama3-8b at full width and depth (random bf16 weights from
    and of a decode step (``torch.profiler``).
 C. ``wkv_chunked`` against its plain version ``wkv_plain`` on the card at
    the shapes the rwkv6-1.6b serving path gives it, H = 32 heads of 64:
-   f32 prefill with batch 1 and T in {5, 64, 128, 2048} (chunk min(64, T)),
-   f32 decode with batch 4, T = 1 and a random starting state, a bf16
-   case and a strong-decay case (log decay -12, output finite); the final
-   state is held against the plain version's too.  Timed (CUDA events) at
-   prefill T = 2048 and at decode batch 4 beside the plain version; no
-   single PyTorch call computes WKV, so there is no library yardstick.
+   f32 prefill with batch 1 and T in {5, 17, 37, 64, 128, 2048} (chunk
+   min(64, T): ragged chunks pad to 16-row sub-blocks), f32 decode with
+   batch 4, T = 1 and a random starting state (the decode route), a bf16
+   case, a strong-decay case (log decay -12) and the model's two decay
+   clamp ends (-exp(4), -exp(-8); prefill and decode, held against the
+   plain version in float64, whose float32 run rounds cum - lw by more
+   than the tolerance at -exp(4)), every output finite; the final state
+   is held against the plain version's too.  Timed at prefill T = 2048 and
+   at decode batch 4: CUDA events around one call (``ms``), 20
+   back-to-back calls between one pair of events (``ms_batched``),
+   ``torch.profiler``'s device time (``device_ms``) and the host time of a
+   call (``host_us``), beside the plain version, the exponentials a head
+   per chunk (the pairwise form in every column tile, as the first port
+   took them, and the factored kernel's) and, beside the bound, the bound
+   of the factored form's operation count (``bound_factored_ms``) with the
+   device time's ratio to each; no single PyTorch call computes WKV, so
+   there is no library yardstick.
 D. Serving rwkv6-1.6b at full width and depth (random bf16 weights from
    ``torch.Generator`` seed 0, about 3.2 GB; the llama3-8b weights of phase
    B are freed first) through ``ServingEngine(max_slots=4, max_len=4096)``:
@@ -396,38 +407,84 @@ def wkv_flops(rows: int, T: int, c: int, hd: int) -> int:
     return rows * (T // c) * per_chunk
 
 
+def wkv_flops_factored(rows: int, T: int, c: int, hd: int) -> int:
+    """Operations of the factored form the kernel computes, counted as
+    ``wkv_flops`` but for the pairwise term: in the diagonal 16-row
+    sub-blocks a subtract, an exponential, two multiplies and an add per
+    (t, s, channel), and between sub-blocks one multiply and one add (the
+    three factors are taken once a row or a sub-block, and, as in
+    ``wkv_flops``, the decays of r and k are not counted).  Information
+    beside the bound, whose convention stays ``wkv_flops``."""
+    sizes = [min(16, c - 16 * p) for p in range(-(-c // 16))]
+    diag = sum(n * (n - 1) // 2 for n in sizes)
+    off = c * (c - 1) // 2 - diag
+    per_chunk = (4 * c * hd * hd + 5 * hd * diag + 2 * hd * off
+                 + c * (c + 1) * hd + 3 * c * hd)
+    return rows * (T // c) * per_chunk
+
+
+def wkv_exps(c: int, hd: int) -> dict:
+    """Exponentials a head takes per chunk of c rows (information beside the
+    bound, whose convention is unchanged): ``per_tile_pairwise``, the
+    pairwise form c(c-1)/2*hd and the decays of r and k in each of the
+    hd/16 column tiles (as the first port took them); and ``factored``,
+    the factored kernel, which takes the pair form only in the diagonal
+    16-row sub-blocks, once a pair of CTAs (a CTA alone where hd <= 16),
+    and whose every CTA takes the decays of its prep (r, k, and the factors
+    between sub-blocks)."""
+    tiles = max(1, hd // 16)
+    cluster = min(2, tiles)
+    nsb = -(-c // 16)
+    prep = 2 * nsb * 16 * hd + 2 * nsb * hd + nsb * (nsb - 1) // 2 * hd + hd
+    return dict(per_tile_pairwise=tiles * (c * (c - 1) // 2 * hd + 2 * c * hd + hd),
+                factored=tiles // cluster * nsb * 120 * hd + tiles * prep,
+                pairwise_once=c * (c - 1) // 2 * hd)
+
+
 def check_wkv(torch, dev, kernels: dict) -> dict:
     """Phase C: the WKV kernel against its plain version at the rwkv6-1.6b
     serving path's shapes, timed at prefill T = 2048 and decode batch 4."""
+    from time_copy_convert import host_us
+
     from repro_torch.kernels.wkv import wkv_chunked, wkv_plain
 
     gen = torch.Generator(dev).manual_seed(11)
     H, hd, chunk = 32, 64, 64
 
-    def inputs(B, T, dtype=torch.float32, state=False, strong=False):
+    def inputs(B, T, dtype=torch.float32, state=False, lw_value=None):
         r, k, v = (torch.randn((B, T, H, hd), generator=gen, device=dev) for _ in range(3))
         # the model's decays: -exp(w_base + lora) with w_base ~ N(-1, 0.5)
-        lw = (torch.full_like(r, -12.0) if strong else
+        lw = (torch.full_like(r, lw_value) if lw_value is not None else
               -torch.exp(torch.randn((B, T, H, hd), generator=gen, device=dev) * 0.5 - 1.0))
         u = torch.randn((H, hd), generator=gen, device=dev) * 0.1
         S0 = torch.randn((B, H, hd, hd), generator=gen, device=dev) if state else None
         return [t.to(dtype) for t in (r, k, v, lw, u)], S0
 
-    cases = [(f"prefill f32 B=1 T={T}", dict(B=1, T=T)) for T in (5, 64, 128, 2048)]
+    cases = [(f"prefill f32 B=1 T={T}", dict(B=1, T=T)) for T in (5, 17, 37, 64, 128, 2048)]
     cases += [("decode f32 B=4 T=1, given state", dict(B=4, T=1, state=True)),
               ("prefill bf16 B=1 T=128", dict(B=1, T=128, dtype=torch.bfloat16)),
-              ("strong decay f32 B=1 T=128 (lw=-12)", dict(B=1, T=128, strong=True)),
+              ("strong decay f32 B=1 T=128 (lw=-12)", dict(B=1, T=128, lw_value=-12.0)),
               ("prefill f32 B=2 T=256, given state", dict(B=2, T=256, state=True))]
+    # the model's decay clamp ends (models/rwkv.py: -exp(clamp(., -8, 4))),
+    # held against the plain version in float64: at -exp(4) a 64-row sum of
+    # log decays reaches -3494, where float32's cum - lw (the plain
+    # version's cum_prev) is off from the previous row's sum by ulps of
+    # 2.4e-4; the kernel sums inside 16-row sub-blocks
+    for name, value in (("clamp end -exp(4)", -math.exp(4.0)), ("clamp end -exp(-8)", -math.exp(-8.0))):
+        cases += [(f"{name} f32 B=1 T=128", dict(B=1, T=128, lw_value=value, f64=True)),
+                  (f"{name} f32 decode B=4, given state", dict(B=4, T=1, state=True,
+                                                               lw_value=value, f64=True))]
     worst, errs = 0.0, {}
     for label, kw in cases:
+        plain = torch.float64 if kw.pop("f64", False) else torch.float32
         (r, k, v, lw, u), S0 = inputs(**kw)
         y, S = wkv_chunked(r, k, v, lw, u, chunk=chunk, S0=S0)
-        want_y, want_S = wkv_plain(r.float(), k.float(), v.float(), lw.float(), u.float(),
-                                   chunk=chunk, S0=S0)
+        want_y, want_S = wkv_plain(*(t.to(plain) for t in (r, k, v, lw, u)), chunk=chunk,
+                                   S0=None if S0 is None else S0.to(plain))
         torch.cuda.synchronize()
         dname = str(r.dtype)[6:]
         tol = WKV_TOL[dname]
-        want_y = want_y.to(r.dtype)
+        want_y, want_S = want_y.float().to(r.dtype), want_S.float()
         err_y = (y.float() - want_y.float()).abs().max().item()
         err_S = (S - want_S).abs().max().item()
         if not (torch.isfinite(y.float()).all() and torch.isfinite(S).all()):
@@ -436,24 +493,42 @@ def check_wkv(torch, dev, kernels: dict) -> dict:
                 and torch.allclose(S, want_S, rtol=tol, atol=tol)):
             fail(f"wkv_chunked {label}: max abs err y {err_y}, state {err_S} (tol {tol})")
         worst = max(worst, err_y, err_S)
-        errs[label] = dict(y=err_y, state=err_S, tol=tol)
+        errs[label] = dict(y=err_y, state=err_S, tol=tol, plain=str(plain)[6:])
+        if plain == torch.float64:  # the float32 plain version's own distance, information
+            p32_y, p32_S = wkv_plain(r, k, v, lw, u, chunk=chunk, S0=S0)
+            errs[label]["plain_f32_vs_f64"] = max((p32_y.float() - want_y.float()).abs().max().item(),
+                                                  (p32_S - want_S).abs().max().item())
         print(f"wkv_chunked {label} {tuple(r.shape)} {dname}: max abs err y {err_y}, "
-              f"state {err_S} (tol {tol})", flush=True)
+              f"state {err_S} (tol {tol}, plain in {str(plain)[6:]})", flush=True)
+    none = lambda: None  # noqa: E731  (no flush: the path's inputs come warm from its GEMMs)
     (r, k, v, lw, u), _ = inputs(1, 2048)
+    run = lambda: wkv_chunked(r, k, v, lw, u, chunk=chunk)  # noqa: E731
     prefill = dict(
-        ms=time_ms(torch, lambda: wkv_chunked(r, k, v, lw, u, chunk=chunk)),
+        ms=time_ms(torch, run), ms_batched=time_ms_batched(torch, run),
+        device_ms=device_ms(torch, run, flush=none), host_us=host_us(torch, run, calls=50),
         plain_ms=time_ms(torch, lambda: wkv_plain(r, k, v, lw, u, chunk=chunk), reps=3),
-        flops=wkv_flops(H, 2048, chunk, hd),
-        bytes=5 * r.numel() * 4 + (u.numel() + H * hd * hd) * 4)
+        flops=wkv_flops(H, 2048, chunk, hd), flops_factored=wkv_flops_factored(H, 2048, chunk, hd),
+        bytes=5 * r.numel() * 4 + (u.numel() + H * hd * hd) * 4,
+        exps_per_head_chunk=wkv_exps(chunk, hd))
     (dr, dk, dv, dlw, du), dS0 = inputs(4, 1, state=True)
+    drun = lambda: wkv_chunked(dr, dk, dv, dlw, du, chunk=chunk, S0=dS0)  # noqa: E731
     decode = dict(
-        ms=time_ms(torch, lambda: wkv_chunked(dr, dk, dv, dlw, du, chunk=chunk, S0=dS0)),
+        ms=time_ms(torch, drun), ms_batched=time_ms_batched(torch, drun),
+        device_ms=device_ms(torch, drun, flush=none), host_us=host_us(torch, drun),
         plain_ms=time_ms(torch, lambda: wkv_plain(dr, dk, dv, dlw, du, chunk=chunk, S0=dS0)),
-        flops=wkv_flops(4 * H, 1, 1, hd),
+        flops=wkv_flops(4 * H, 1, 1, hd), flops_factored=wkv_flops_factored(4 * H, 1, 1, hd),
         bytes=5 * dr.numel() * 4 + du.numel() * 4 + 2 * dS0.numel() * 4)
     for d in (prefill, decode):
         t_ops, t_bytes = d["flops"] / F32_FLOP_PER_S * 1e3, d["bytes"] / HBM_BYTES_PER_S * 1e3
         d.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes")
+        # the same bound from the factored form's count, and the distance to each
+        d["bound_factored_ms"] = max(d["flops_factored"] / F32_FLOP_PER_S * 1e3, t_bytes)
+        d["device_over_bound"] = d["device_ms"] / d["bound_ms"]
+        d["device_over_bound_factored"] = d["device_ms"] / d["bound_factored_ms"]
+    for label, d in (("prefill", prefill), ("decode", decode)):
+        print(f"wkv_chunked {label}: device {d['device_ms']} ms, bound {d['bound_ms']} ms "
+              f"({d['device_over_bound']:.2f}x), factored-form bound {d['bound_factored_ms']} ms "
+              f"({d['device_over_bound_factored']:.2f}x)", flush=True)
     kernels["wkv_chunked"] = dict(
         name="wkv_chunked", route="cuda", source="src/repro_torch/kernels/csrc/wkv.cu",
         replaces="src/repro/kernels/wkv/wkv.py:90", max_abs_err=worst,
@@ -461,8 +536,8 @@ def check_wkv(torch, dev, kernels: dict) -> dict:
         bound_by=prefill["bound_by"], library_ms=None,
         shape="r, k, v, lw (1, 2048, 32, 64) f32, chunk 64", flops=prefill["flops"],
         flop_convention="per (row, chunk): 4*c*hd^2 + 5*hd*c(c-1)/2 + c(c+1)*hd + 3*c*hd",
-        bytes=prefill["bytes"], decode=dict(decode, shape="(4, 1, 32, 64) f32 + state"),
-        errors=errs,
+        bytes=prefill["bytes"], prefill=prefill,
+        decode=dict(decode, shape="(4, 1, 32, 64) f32 + state"), errors=errs,
     )
     print("wkv_chunked:", json.dumps(kernels["wkv_chunked"]), flush=True)
     return kernels["wkv_chunked"]
@@ -704,6 +779,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tools"))  # the timing helpers the tools share
     import torch.nn.functional as F
 
     from repro_torch.core.mesh import make_mesh

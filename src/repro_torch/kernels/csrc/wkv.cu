@@ -7,48 +7,109 @@
 // computes, in f32:
 //   cum      = cumsum_t(lw),  cum_prev = cum - lw            (lw < 0)
 //   y_t      = (r_t * exp(cum_prev_t)) . S                    state term
-//            + sum_{s<t} A_ts v_s,  A_ts = sum_i r_ti k_si exp(min(cum_prev_ti - cum_si, 0))
+//            + sum_{s<t} A_ts v_s,  A_ts = sum_i r_ti k_si exp(cum_prev_ti - cum_si)
 //            + (sum_i r_ti u_i k_ti) v_t                      diagonal bonus
 //   S       <- diag(exp(cum_T)) S + sum_s (k_s * exp(cum_T - cum_s)) (x) v_s
 // starting from a given S0 (zeros when none is given) and writing the final
-// state.  Decode is the same kernel at T = c = 1.
+// state.
 //
-// What bounds it on this card: operations, and of them the exponentials.
-// The pairwise term needs c*c/2*hd expf per chunk and row (at c = hd = 64,
-// 131072), beside about 2*c*hd*hd flops of state products; the bytes are
-// one read of r, k, v, lw and one write of y.  The design:
-//   * the TPU kernel carries S across a sequential ("arbitrary") grid axis
-//     in VMEM; here blocks run in no order, so the chunk loop is inside the
-//     block and S stays in shared memory for the whole sweep;
-//   * the grid is (hd / JT column tiles of S, head, batch).  Column j of S
-//     needs only column j of v, so the tiles of one row are independent;
-//     at prefill with batch 1 that turns 32 rows into 128 blocks for 132
-//     SMs, at the price of every tile recomputing the row's (c, c) A;
-//   * A is computed in 4x4 register tiles over the lower triangle only
-//     (16 independent exponentials per channel step), the bonus lands on
-//     A's diagonal, so y = (r * exp(cum_prev)) . S + A . v in one pass.
-//     At c = 64 that is 16 diagonal and 120 off-diagonal tiles; each
-//     off-diagonal tile is split over two threads by channel parity (their
-//     two partial sums meet in shared memory, a + b in either order), so
-//     16 + 240 = 256 items occupy every thread of the block;
-//   * a chunk's r, k, lw and v are loaded into registers in one unrolled
-//     sweep before they are stored, so the loads are in flight together;
+// What bounds it on this card: shared-memory traffic and latency at 8
+// warps an SM, not a roofline (operations bound it there: about 4*c*hd*hd
+// flops of state products a chunk, and the bytes are one read of r, k, v,
+// lw and one write of y).  Taken per (t, s, channel), the pairwise term
+// would cost c*c/2*hd exponentials a chunk (131072 at c = hd = 64), in
+// each of a head's column tiles.  A 64-row chunk is now three dependent
+// phases (the prep; y beside the state update; the next chunk's A), each
+// reading its operands from shared memory.  The design:
+//   * factored sub-block decays.  A chunk is cut into sub-blocks of 16 rows
+//     (a ragged chunk is padded with r = k = v = lw = 0, which leaves every
+//     cumulative sum unchanged).  With cumulative sums taken inside each
+//     sub-block (Cl inclusive, Cp exclusive, tot the sub-block's sum), a
+//     source row s of sub-block q and a target row t of sub-block p > q give
+//       cum_prev_t - cum_s = Cp_t + (tot_{q+1} + .. + tot_{p-1}) + (tot_q - Cl_s)
+//     three sums of log decays, each <= 0, so
+//       A_pq = (r_p * e^{Cp}) . diag(e^{b_{p-1} - b_q}) . (k_q * e^{tot_q - Cl})^T
+//     is a small dense product (4 x 4 tiles).  Only the diagonal
+//     sub-blocks take a per-pair exponential, exp(min(Cp_t - Cl_s, 0)), in
+//     1 x 4 strips of their lower triangle.  No exponent is ever positive,
+//     and every factor is at least the exact term, so a factor underflows
+//     only where the term itself is below f32's range.  The state term and
+//     update reuse the factors: r * e^{cum_prev} = (r * e^{Cp}) * e^{b_{p-1}},
+//     k * e^{cum_T - cum} = (k * e^{tot - Cl}) * e^{cum_T - b_q}.  The
+//     exclusive sums are the running sums before each row is added, so
+//     consecutive rows' decay is exactly 1 (the plain version's cum - lw
+//     is off by ulps of the 64-row sum, 2.4e-4 at the clamp's -exp(4)).
+//   * one A per cluster.  The grid is (hd / JT column tiles of S, head,
+//     batch); column j of S needs only column j of v, so the tiles of a head
+//     are independent but for A.  Pairs of them (CL = 2; 1 where a head is
+//     one CTA) run as one thread-block cluster: each CTA computes every
+//     other item of A (at c = 64, two diagonal sub-blocks' 40 strips each
+//     and half of the 96 off-diagonal tiles) and stores it into both CTAs'
+//     copies of A through distributed shared memory; one cluster barrier a
+//     chunk publishes A, and A is double-buffered, so the next chunk's
+//     stores cannot overtake a slower CTA's reads.  rwkv6-1.6b's 32 heads at
+//     batch 1 are 128 CTAs for 132 SMs, one wave.  Clusters of four (A once
+//     a head) would take two waves there: an H100 holds 30 clusters of four
+//     such CTAs but 66 of two.  A CTA alone (A computed by every CTA of a
+//     head) measured 1.4x slower than pairs, and no longer fits the
+//     pipelined shared memory.
+//   * a pipelined march, two barriers a chunk.  A needs only its chunk's
+//     prep, not the state, so it runs one chunk ahead: in one phase warps
+//     0-3 compute y of chunk n and warps 4-7 update the state (into the
+//     other buffer of S), then every thread takes its items of A for chunk
+//     n + 1, while chunk n + 2's raw r, k, lw and the CTA's columns of v
+//     are copied by cp.async (16 bytes a copy where the rows are aligned,
+//     plain loads otherwise) into the staging area; the cluster barrier
+//     ends it (A published, S whole, the staging visible after each
+//     thread's cp.async wait).  In the second phase every thread preps
+//     chunk n + 2 (staging into f32 working rows and decay factors, kept
+//     in two sets by chunk parity), and a CTA barrier ends it.  Every CTA
+//     of a cluster loads r, k, lw itself (from L2 after the first), and no
+//     TMA descriptor is built per call (one bulk copy a row and array,
+//     cp.async.bulk from one warp, made the kernel 1.7x slower: the 256
+//     small copies a chunk queue in the copy engine).
+//   * the prep gives each (channel, sub-block) one thread that walks its
+//     16 rows; the four sub-blocks of a channel sit in adjacent lanes and
+//     trade their sums by shuffles, so the decay factors between
+//     sub-blocks need no barrier.  A's items come from a list built once
+//     per launch (no index arithmetic in the loop), each split over NQ
+//     lanes by channel and summed by shuffles (no atomics); strips are
+//     branch-free (an entry on or above the diagonal gets exponent -inf).
+//   * a decode route, chosen by c == 1: one CTA per (head, batch) holds S
+//     in registers for all T tokens, reads and writes it in 16-byte
+//     vectors, and does y = r.S + (r.u.k) v and S <- diag(e^lw) S + k (x) v
+//     with no chunk machinery.
+//   * cudaFuncSetAttribute runs once per kernel instance and device, not
+//     per launch.
 //   * r, k, v, lw are read in the model layout (B, T, H, hd) through
 //     (batch, time, head) strides, so the caller makes no transposing copy;
 //     u is read per (batch, head) through its own strides, so a per-head
-//     (H, hd) u and the JAX kernel's per-row (BH, 1, hd) u both work;
-//   * expf (not __expf) keeps f32 within the JAX kernel test's 3e-4.
+//     (H, hd) u and the JAX kernel's per-row (BH, 1, hd) u both work.
+//   * arithmetic is f32 on the CUDA cores: a TF32 product would round each
+//     term at about 5e-4, above the stated 3e-4.  The sums of log decays
+//     are kept in log2 units and exponentiated by ex2.approx.ftz (relative
+//     error about 2^-22, as expf's; results below 2^-126, terms far below
+//     the tolerance, flush to 0).
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 enum DType { F32 = 0, BF16 = 1 };
 
-constexpr int NTHREADS = 256;
-constexpr int MAX_CHUNK = 64;  // rows of a chunk held in shared memory
+constexpr int NTHREADS = 256;   // chunked route
+constexpr int NTHREADS_D = 128; // decode route
+constexpr int MAX_CHUNK = 64;   // rows of a chunk held in shared memory
+constexpr int SB = 16;          // rows of a sub-block
+constexpr int MAX_SB = MAX_CHUNK / SB;
+constexpr int NQ = 4;           // lanes that split one item of A by channel
+constexpr int MAX_ITEMS = MAX_SB * 40 + MAX_SB * (MAX_SB - 1) / 2 * 16;  // 256
+constexpr float LOG2E = 1.4426950408889634f;
 
 struct Strides {
   long long b, t, h;
@@ -62,257 +123,658 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+template <typename T>
+__device__ __forceinline__ void store4(T* p, float4 a) {
+  p[0] = from_f32<T>(a.x);
+  p[1] = from_f32<T>(a.y);
+  p[2] = from_f32<T>(a.z);
+  p[3] = from_f32<T>(a.w);
+}
+template <>
+__device__ __forceinline__ void store4<float>(float* p, float4 a) {
+  *reinterpret_cast<float4*>(p) = a;  // y rows and column tiles are 16-byte aligned
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+// 2^x by the SFU (ex2.approx.ftz: relative error about 2^-22, results
+// below 2^-126 flushed to 0); every x here is <= 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 template <int HD>
 struct Tile {
-  static constexpr int JT = HD < 16 ? HD : 16;  // state columns per block
-  static constexpr int LD = HD + 1;             // padded pitch of the (c, hd) arrays
+  static constexpr int JT = HD < 16 ? HD : 16;  // state columns per CTA
+  static constexpr int NC = HD / JT;            // CTAs a head
+  static constexpr int LD = HD + 1;             // pitch of the f32 working arrays
+  static constexpr int LDA = MAX_CHUNK + 4;     // pitch of A (16-byte rows)
 };
 
-// floats of dynamic shared memory for a chunk of cp4 (c rounded up to 4) rows
-template <int HD>
-__host__ __device__ constexpr int smem_floats(int cp4) {
-  return 4 * cp4 * Tile<HD>::LD + cp4 * (cp4 + 1) + cp4 * Tile<HD>::JT + HD * Tile<HD>::JT +
-         3 * HD;
-}
-
-// One 4x4 tile of A: rows t0..t0+3, columns s0..s0+3, summed over the
-// channels i0, i0 + step, ...  DIAG tiles (t0 == s0, every channel) keep the
-// strictly lower entries of the chunk's c rows (padded rows stay zero, so a
-// decode step's c = 1 computes the bonus alone), put the bonus on the
-// diagonal and zero the rest, and are stored; other tiles lie wholly below
-// the diagonal, and their partial sums are added to As (zeroed before).
-template <int HD, bool DIAG>
-__device__ __forceinline__ void a_tile(const float* Rs, const float* Ks, const float* Cum,
-                                       const float* Cp, const float* Us, float* As, int lda,
-                                       int t0, int s0, int i0, int step, int c) {
-  constexpr int LD = Tile<HD>::LD;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-#pragma unroll 2
-  for (int i = i0; i < HD; i += step) {
-    float rv[4], cp[4], kv[4], cs[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      rv[a] = Rs[(t0 + a) * LD + i];
-      cp[a] = Cp[(t0 + a) * LD + i];
-      kv[a] = Ks[(s0 + a) * LD + i];
-      cs[a] = Cum[(s0 + a) * LD + i];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        if (!DIAG)
-          acc[a][b] = fmaf(rv[a] * kv[b], expf(fminf(cp[a] - cs[b], 0.f)), acc[a][b]);
-        else if (t0 + a < c && b < a)
-          acc[a][b] = fmaf(rv[a] * kv[b], expf(fminf(cp[a] - cs[b], 0.f)), acc[a][b]);
-        else if (b == a)
-          acc[a][b] = fmaf(rv[a] * Us[i], kv[b], acc[a][b]);
-      }
+// Shared memory of the chunked route with clusters of CL CTAs, in bytes
+// from the base, for a chunk padded to cp rows (a multiple of 16).
+// Staging holds raw inputs of type T; each sub-block of its rows starts
+// 32 bytes further on (a bank skew: the prep reads four sub-blocks at once).
+// The prep's results for y and the state update (Rq, Kq, V and the decay
+// factors) come in two sets, by chunk parity: y and the state update of
+// chunk n read one set while A of chunk n + 1 reads the other.
+template <typename T, int HD, int CL>
+struct Layout {
+  static constexpr int JT = Tile<HD>::JT, LD = Tile<HD>::LD, LDA = Tile<HD>::LDA;
+  static constexpr int PT = HD + 16 / (int)sizeof(T);  // staging pitch, 16-byte rows
+  static constexpr int SKEW = 32 / (int)sizeof(T);
+  static constexpr int ND = (MAX_SB + CL - 1) / CL;    // diagonal sub-blocks a CTA computes
+  __host__ __device__ static int row(int t) { return t * PT + (t / SB) * SKEW; }
+  size_t st_r, st_k, st_l, st_v;   // staging: r, k, lw (row(t)), v (cp x JT)
+  size_t set, set_bytes;           // two sets of the following, offsets within a set:
+  size_t Rq, Kq, V;                //   all rows: r 2^Cp, k 2^{tot - Cl}; v's columns
+  size_t E, F, G, ET;              //   2^{b_{p-1}}, 2^{cum_T - b_p}, 2^{b_{p-1} - b_q}, 2^{cum_T}
+  size_t R, K, Cl, Cp;             // the rows of this CTA's diagonal sub-blocks
+  size_t A, S;                     // A: 2 x (MAX_CHUNK x LDA); S: 2 x (HD x JT)
+  size_t U, items, total;
+  __host__ __device__ explicit Layout(int cp) {
+    size_t o = 0;
+    auto take = [&o](size_t bytes) {
+      const size_t at = o;
+      o += (bytes + 15) & ~size_t(15);
+      return at;
+    };
+    const size_t st = sizeof(T) * (cp * PT + MAX_SB * SKEW);
+    st_r = take(st);
+    st_k = take(st);
+    st_l = take(st);
+    st_v = take(sizeof(T) * cp * JT);
+    const size_t base = o;
+    o = 0;
+    Rq = take(4 * cp * LD);
+    Kq = take(4 * cp * LD);
+    V = take(4 * cp * JT);
+    E = take(4 * MAX_SB * HD);
+    F = take(4 * MAX_SB * HD);
+    G = take(4 * MAX_SB * MAX_SB * HD);
+    ET = take(4 * HD);
+    set_bytes = o;
+    set = base;
+    o = base + 2 * set_bytes;
+    R = take(4 * ND * SB * LD);
+    K = take(4 * ND * SB * LD);
+    Cl = take(4 * ND * SB * LD);
+    Cp = take(4 * ND * SB * LD);
+    A = take(4 * 2 * MAX_CHUNK * LDA);
+    S = take(4 * 2 * HD * JT);
+    U = take(4 * HD);
+    items = take(2 * MAX_ITEMS);
+    total = o;
   }
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      if (DIAG)
-        As[(t0 + a) * lda + s0 + b] = acc[a][b];
-      else
-        atomicAdd(&As[(t0 + a) * lda + s0 + b], acc[a][b]);
+};
+
+// Copy rows [t0, t0 + c) of r, k, lw and the CTA's columns of v into the
+// staging area: cp.async of 16 bytes where every row is 16-byte aligned
+// (vec), plain loads and stores otherwise.  Rows c..cp-1 stay zero.
+template <typename T, int HD, int CL>
+__device__ __forceinline__ void load_chunk(T* Sr, T* Sk, T* Sl, T* Sv, const T* rb,
+                                           const T* kb, const T* lb, const T* vb,
+                                           const Strides& rs, const Strides& ks,
+                                           const Strides& ls, const Strides& vs, long long t0,
+                                           int c, bool vec, int tid) {
+  using L = Layout<T, HD, CL>;
+  constexpr int JT = Tile<HD>::JT;
+  if (vec) {
+    constexpr int EP = 16 / (int)sizeof(T);  // elements a copy
+    constexpr int PR = HD / EP, PV = JT / EP;
+    for (int e = tid; e < c * PR; e += NTHREADS) {
+      const int t = e / PR, o = (e % PR) * EP, d = L::row(t) + o;
+      const long long tt = t0 + t;
+      cp_async16(Sr + d, rb + tt * rs.t + o);
+      cp_async16(Sk + d, kb + tt * ks.t + o);
+      cp_async16(Sl + d, lb + tt * ls.t + o);
     }
+    for (int e = tid; e < c * PV; e += NTHREADS) {
+      const int t = e / PV, o = (e % PV) * EP;
+      cp_async16(Sv + t * JT + o, vb + (t0 + t) * vs.t + o);
+    }
+  } else {
+    for (int e = tid; e < c * HD; e += NTHREADS) {
+      const int t = e / HD, i = e % HD, d = L::row(t) + i;
+      const long long tt = t0 + t;
+      Sr[d] = rb[tt * rs.t + i];
+      Sk[d] = kb[tt * ks.t + i];
+      Sl[d] = lb[tt * ls.t + i];
+    }
+    for (int e = tid; e < c * JT; e += NTHREADS) {
+      const int t = e / JT, jj = e % JT;
+      Sv[t * JT + jj] = vb[(t0 + t) * vs.t + jj];
+    }
+  }
+  cp_async_commit();
 }
 
-template <typename T, int HD>
-__global__ void __launch_bounds__(NTHREADS)
-wkv_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ lw, const T* __restrict__ u, const float* __restrict__ S0,
-           T* __restrict__ y, float* __restrict__ S_fin, int Tlen, int H, int c, Strides rs,
-           Strides ks, Strides vs, Strides ls, long long usb, long long ush) {
-  constexpr int JT = Tile<HD>::JT, LD = Tile<HD>::LD, J4 = JT / 4;
-  const int cp4 = (c + 3) & ~3;
-  const int lda = cp4 + 1;
-  extern __shared__ __align__(16) float smem[];
-  float* Rs = smem;                 // cp4 x LD: r, then r * exp(cum_prev)
-  float* Ks = Rs + cp4 * LD;        // cp4 x LD: k, then k * exp(total - cum)
-  float* Cum = Ks + cp4 * LD;       // cp4 x LD: inclusive cumsum of lw
-  float* Cp = Cum + cp4 * LD;       // cp4 x LD: lw, then cum - lw
-  float* As = Cp + cp4 * LD;        // cp4 x lda: A, bonus on the diagonal
-  float* Vs = As + cp4 * lda;       // cp4 x JT: this block's columns of v
-  float* Ss = Vs + cp4 * JT;        // HD x JT: this block's columns of S
-  float* Us = Ss + HD * JT;         // HD: bonus u of this head
-  float* Tot = Us + HD;             // HD: cum at the chunk's last row
-  float* Dec = Tot + HD;            // HD: exp(Tot)
+// A work item of the A phase, split over NQ lanes by channel:
+//   kind 0, a 4 x 4 tile of an off-diagonal sub-block (p, q): target rows
+//     row..row+3, source rows 4*s4.., G index p*MAX_SB + q in the top bits;
+//   kind 1, a 1 x 4 strip of a diagonal sub-block: target row `row`,
+//     source rows 4*s4.., the sub-block's slot among this CTA's diagonal
+//     sub-blocks in the top bits.
+__device__ __forceinline__ uint16_t item_code(int row, int s4, int kind, int top) {
+  return (uint16_t)(row | (s4 << 6) | (kind << 10) | (top << 12));
+}
 
-  const int tid = threadIdx.x;
+// The items of A this CTA computes, diagonal strips first: the diagonal
+// sub-blocks p = rank, rank + cl, .. (each 40 strips of its lower
+// triangle), then every cl-th tile of the off-diagonal sub-blocks.
+__device__ int build_items(uint16_t* items, int nsb, int rank, int cl) {
+  int n = 0;
+  for (int p = rank; p < nsb; p += cl)
+    for (int t = 0; t < SB; ++t)
+      for (int s4 = 0; s4 <= t / 4; ++s4)
+        items[n++] = item_code(SB * p + t, (SB * p) / 4 + s4, 1, p / cl);
+  int g = 0;
+  for (int p = 1; p < nsb; ++p)
+    for (int q = 0; q < p; ++q)
+      for (int ti = 0; ti < 4; ++ti)
+        for (int si = 0; si < 4; ++si, ++g)
+          if (g % cl == rank) items[n++] = item_code(SB * p + 4 * ti, 4 * q + si, 0, p * MAX_SB + q);
+  return n;
+}
+
+template <typename T, int HD, int CL>
+__global__ void __launch_bounds__(NTHREADS)
+wkv_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ lw, const T* __restrict__ u, const float* __restrict__ S0,
+                 T* __restrict__ y, float* __restrict__ S_fin, int Tlen, int H, int c,
+                 Strides rs, Strides ks, Strides vs, Strides ls, long long usb, long long ush,
+                 int vec) {
+  using L = Layout<T, HD, CL>;
+  constexpr int JT = Tile<HD>::JT, LD = Tile<HD>::LD, LDA = Tile<HD>::LDA, J4 = JT / 4;
+  static_assert(NQ == 4 && NTHREADS % 32 == 0, "a tile's four rows are stored by its four lanes");
+  constexpr unsigned FULL = 0xffffffffu;
+  const int cp = (c + SB - 1) / SB * SB, nsb = cp / SB;
+  const L lay(cp);
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Sr = reinterpret_cast<T*>(smem + lay.st_r);
+  T* Sk = reinterpret_cast<T*>(smem + lay.st_k);
+  T* Sl = reinterpret_cast<T*>(smem + lay.st_l);
+  T* Sv = reinterpret_cast<T*>(smem + lay.st_v);
+  float* R = reinterpret_cast<float*>(smem + lay.R);    // r, k, Cl, Cp of the diagonal
+  float* K = reinterpret_cast<float*>(smem + lay.K);    // sub-blocks this CTA computes
+  float* Cl = reinterpret_cast<float*>(smem + lay.Cl);  // inclusive sum of lw*log2(e) in the sub-block
+  float* Cp = reinterpret_cast<float*>(smem + lay.Cp);  // exclusive sum
+  float* A = reinterpret_cast<float*>(smem + lay.A);    // 2 x A, bonus on the diagonal
+  float* Sb = reinterpret_cast<float*>(smem + lay.S);   // 2 x this CTA's columns of S
+  float* Us = reinterpret_cast<float*>(smem + lay.U);
+  uint16_t* items = reinterpret_cast<uint16_t*>(smem + lay.items);
+  __shared__ int nitems_s;
+  // the parity set's arrays
+  auto set_f = [&](int par, size_t off) {
+    return reinterpret_cast<float*>(smem + lay.set + par * lay.set_bytes + off);
+  };
+
+  const int tid = threadIdx.x, lane = tid % 32;
   const int j0 = blockIdx.x * JT, h = blockIdx.y, b = blockIdx.z;
+  int rank = 0;
+  float* Adst[CL];  // every copy of A this CTA stores into, its own first
+  Adst[0] = A;
+  if constexpr (CL > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = (int)cluster.block_rank();
+#pragma unroll
+    for (int q = 1; q < CL; ++q) Adst[q] = cluster.map_shared_rank(A, (rank + q) % CL);
+  }
   const T* rb = r + b * rs.b + h * rs.h;
   const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h + j0;
   const T* lb = lw + b * ls.b + h * ls.h;
+  const T* vb = v + b * vs.b + h * vs.h + j0;
   const long long ys = (long long)H * HD;  // y is (B, T, H, HD), contiguous
   T* yb = y + (long long)b * Tlen * ys + h * HD + j0;
   const long long srow = ((long long)b * H + h) * HD * HD + j0;  // S[b, h, 0, j0]
 
+  // prep of the staged chunk into set `par`: lane group (channel i,
+  // sub-block p = lane % 4) walks its 16 rows, trades sub-block sums by
+  // shuffles, writes the decay factors and the f32 working rows; all sums
+  // in log2 units
+  auto prep = [&](int par) {
+    float* Rq = set_f(par, lay.Rq);
+    float* Kq = set_f(par, lay.Kq);
+    float* E = set_f(par, lay.E);
+    float* F = set_f(par, lay.F);
+    float* G = set_f(par, lay.G);
+    float* ET = set_f(par, lay.ET);
+    for (int base = 0; base < HD * MAX_SB; base += NTHREADS) {
+      const int e = base + tid, p = e % MAX_SB, i = e / MAX_SB;
+      const bool act = p < nsb && e < HD * MAX_SB;
+      float cl[SB], cx[SB], acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < SB; ++q) {
+        cx[q] = acc;
+        if (act) acc += to_f32(Sl[L::row(p * SB + q) + i]) * LOG2E;
+        cl[q] = acc;
+      }
+      float tq[MAX_SB];
+#pragma unroll
+      for (int q = 0; q < MAX_SB; ++q) tq[q] = __shfl_sync(FULL, acc, (lane & ~(MAX_SB - 1)) | q);
+      if (act) {
+        float before = 0.f, after = 0.f, g = 0.f;
+#pragma unroll
+        for (int q = 0; q < MAX_SB; ++q) {
+          if (q < p) before += tq[q];
+          if (q > p) after += tq[q];  // sub-blocks past nsb hold 0
+        }
+        E[p * HD + i] = ex2(before);
+        F[p * HD + i] = ex2(after);
+#pragma unroll
+        for (int q = MAX_SB - 2; q >= 0; --q)  // 2^{b_{p-1} - b_q}, q = p-1, p-2, ..
+          if (q < p) {
+            G[(p * MAX_SB + q) * HD + i] = ex2(g);
+            g += tq[q];
+          }
+        if (p == nsb - 1) ET[i] = ex2(before + acc);
+        const bool mine = p % CL == rank;
+        const int slot = (p / CL) * SB;
+#pragma unroll
+        for (int q = 0; q < SB; ++q) {
+          const int t = p * SB + q, d = L::row(t) + i;
+          const float rv = to_f32(Sr[d]), kv = to_f32(Sk[d]);
+          Rq[t * LD + i] = rv * ex2(cx[q]);
+          Kq[t * LD + i] = kv * ex2(acc - cl[q]);
+          if (mine) {
+            const int w = (slot + q) * LD + i;
+            R[w] = rv;
+            K[w] = kv;
+            Cl[w] = cl[q];
+            Cp[w] = cx[q];
+          }
+        }
+      }
+    }
+    float* V = set_f(par, lay.V);
+    for (int e = tid; e < cp * JT; e += NTHREADS) V[e] = to_f32(Sv[e]);
+  };
+
   for (int i = tid; i < HD; i += NTHREADS) Us[i] = to_f32(u[b * usb + h * ush + i]);
-  for (int e = tid; e < HD * JT; e += NTHREADS) {
-    const int i = e / JT, jj = e % JT;
-    Ss[e] = S0 ? S0[srow + (long long)i * HD + jj] : 0.f;
+  for (int e = tid; e < HD * JT; e += NTHREADS)
+    Sb[e] = S0 ? S0[srow + (long long)(e / JT) * HD + e % JT] : 0.f;
+  for (int e = tid; e < (cp - c) * HD; e += NTHREADS) {
+    const int d = L::row(c + e / HD) + e % HD;
+    Sr[d] = Sk[d] = Sl[d] = from_f32<T>(0.f);
   }
-
-  // A's work items: nt diagonal tiles, then each off-diagonal tile twice
-  // (even and odd channels)
-  const int nt = cp4 / 4, items = nt + nt * (nt - 1);
-  constexpr int QL = (MAX_CHUNK * HD + NTHREADS - 1) / NTHREADS;  // loads a thread
-  constexpr int QV = (MAX_CHUNK * JT + NTHREADS - 1) / NTHREADS;
-  for (int t0 = 0; t0 < Tlen; t0 += c) {
-    __syncthreads();  // the previous chunk no longer reads the chunk arrays
-    float rr[QL], kk[QL], ll[QL], vv[QV];
+  for (int e = tid; e < (cp - c) * JT; e += NTHREADS) Sv[c * JT + e] = from_f32<T>(0.f);
+  if (tid == 0) nitems_s = build_items(items, nsb, rank, CL);
+  int nwork = 0;  // NQ lanes for each of this CTA's items of A, set once they are listed
+  // this CTA's items of A for chunk m (prep set and A buffer m % 2), each
+  // split over NQ lanes by channel, stored into every CTA of the cluster
+  auto compute_a = [&](int m) {
+    const int par = m & 1;
+    {
+      const float* Rq = set_f(par, lay.Rq);
+      const float* Kq = set_f(par, lay.Kq);
+      const float* G = set_f(par, lay.G);
+      const int abuf = par * MAX_CHUNK * LDA;
+      for (int base = 0; base < nwork; base += NTHREADS) {
+        const int it = base + tid, qch = it % NQ;
+        const bool act = it < nwork;
+        const int code = act ? items[it / NQ] : 0;
+        const int row = code & 63, s0 = 4 * ((code >> 6) & 15), kind = (code >> 10) & 3;
+        const int top = code >> 12;
+        float acc[4][4];
 #pragma unroll
-    for (int q = 0; q < QL; ++q) {
-      const int e = tid + q * NTHREADS, t = e / HD, i = e % HD;
-      const bool ok = e < cp4 * HD && t < c;
-      const long long tt = t0 + t;
-      rr[q] = ok ? to_f32(rb[tt * rs.t + i]) : 0.f;
-      kk[q] = ok ? to_f32(kb[tt * ks.t + i]) : 0.f;
-      ll[q] = ok ? to_f32(lb[tt * ls.t + i]) : 0.f;
-    }
+        for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int q = 0; q < QV; ++q) {
-      const int e = tid + q * NTHREADS, t = e / JT, jj = e % JT;
-      vv[q] = e < cp4 * JT && t < c ? to_f32(vb[(long long)(t0 + t) * vs.t + jj]) : 0.f;
-    }
+          for (int bb = 0; bb < 4; ++bb) acc[a][bb] = 0.f;
+        if (act && kind == 0) {
+          const float* Gp = G + top * HD;
+#pragma unroll 4
+          for (int i = qch; i < HD; i += NQ) {
+            float rv[4], kv[4];
+            const float g = Gp[i];
 #pragma unroll
-    for (int q = 0; q < QL; ++q) {
-      const int e = tid + q * NTHREADS, t = e / HD, i = e % HD;
-      if (e < cp4 * HD) {
-        Rs[t * LD + i] = rr[q];
-        Ks[t * LD + i] = kk[q];
-        Cp[t * LD + i] = ll[q];
+            for (int a = 0; a < 4; ++a) {
+              rv[a] = Rq[(row + a) * LD + i];
+              kv[a] = Kq[(s0 + a) * LD + i] * g;
+            }
+#pragma unroll
+            for (int a = 0; a < 4; ++a)
+#pragma unroll
+              for (int bb = 0; bb < 4; ++bb) acc[a][bb] = fmaf(rv[a], kv[bb], acc[a][bb]);
+          }
+        } else if (act) {
+          // strip: row t against s0..s0+3 of the same sub-block, pair decays
+          // below the diagonal, the bonus r.u.k on it, zero above; branch-free
+          // (an entry on or above the diagonal gets the exponent -inf, so
+          // 2^-inf = 0), so an iteration's loads are in flight together
+          const int tl = top * SB + row % SB, sl = top * SB + s0 % SB, dt = row - s0;
+          float cap[4];
+#pragma unroll
+          for (int bb = 0; bb < 4; ++bb) cap[bb] = bb < dt ? 0.f : __int_as_float(0xff800000);  // -inf
+#pragma unroll 4
+          for (int i = qch; i < HD; i += NQ) {
+            const float rv = R[tl * LD + i], cx = Cp[tl * LD + i];
+#pragma unroll
+            for (int bb = 0; bb < 4; ++bb) {
+              const float kv = K[(sl + bb) * LD + i], cl = Cl[(sl + bb) * LD + i];
+              acc[0][bb] = fmaf(rv * kv, ex2(fminf(cx - cl, cap[bb])), acc[0][bb]);
+            }
+          }
+          if (dt < 4) {
+            float bonus = 0.f;
+#pragma unroll 4
+            for (int i = qch; i < HD; i += NQ)
+              bonus = fmaf(R[tl * LD + i] * Us[i], K[tl * LD + i], bonus);
+#pragma unroll
+            for (int bb = 0; bb < 4; ++bb)
+              if (bb == dt) acc[0][bb] = bonus;
+          }
+        }
+        const bool tiles = __any_sync(FULL, act && kind == 0);
+#pragma unroll
+        for (int off = 1; off < NQ; off <<= 1)
+#pragma unroll
+          for (int a = 0; a < 4; ++a)
+            if (a == 0 || tiles)
+#pragma unroll
+              for (int bb = 0; bb < 4; ++bb)
+                acc[a][bb] += __shfl_xor_sync(FULL, acc[a][bb], off);
+        if (act && (kind == 0 || qch == 0)) {
+          float4 out = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+#pragma unroll
+          for (int a = 1; a < 4; ++a)
+            if (a == qch && kind == 0) out = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+          const int at = abuf + (row + (kind == 0 ? qch : 0)) * LDA + s0;
+#pragma unroll
+          for (int q = 0; q < CL; ++q) *reinterpret_cast<float4*>(Adst[q] + at) = out;
+        }
       }
     }
-#pragma unroll
-    for (int q = 0; q < QV; ++q) {
-      const int e = tid + q * NTHREADS;
-      if (e < cp4 * JT) Vs[e] = vv[q];
-    }
-    for (int e = tid; e < cp4 * lda; e += NTHREADS) As[e] = 0.f;
-    __syncthreads();
+  };
 
-    // cumsum over the chunk, one thread per channel, in order
-    for (int i = tid; i < HD; i += NTHREADS) {
-      float acc = 0.f;
-      for (int t = 0; t < c; ++t) {
-        const float l = Cp[t * LD + i];
-        acc += l;
-        Cum[t * LD + i] = acc;
-        Cp[t * LD + i] = acc - l;
-      }
-      for (int t = c; t < cp4; ++t) Cum[t * LD + i] = 0.f;
-      Tot[i] = acc;
-      Dec[i] = expf(acc);
-    }
-    __syncthreads();
-
-    // A over the lower triangle of 4x4 tiles (padded rows hold zeros)
-    for (int p = tid; p < items; p += NTHREADS) {
-      if (p < nt) {
-        a_tile<HD, true>(Rs, Ks, Cum, Cp, Us, As, lda, 4 * p, 4 * p, 0, 1, c);
-        continue;
-      }
-      // off-diagonal tile o = (ti, si), ti > si, rows in order
-      const int o = (p - nt) >> 1, half = (p - nt) & 1;
-      int ti = (int)((1.f + sqrtf(1.f + 8.f * o)) * 0.5f);
-      while (ti * (ti - 1) / 2 > o) --ti;
-      while ((ti + 1) * ti / 2 <= o) ++ti;
-      const int si = o - ti * (ti - 1) / 2;
-      a_tile<HD, false>(Rs, Ks, Cum, Cp, Us, As, lda, 4 * ti, 4 * si, half, 2, c);
-    }
-    __syncthreads();
-
-    // decay r and k in place: r * exp(cum_prev), k * exp(total - cum)
-    for (int e = tid; e < c * HD; e += NTHREADS) {
-      const int t = e / HD, i = e % HD;
-      Rs[t * LD + i] *= expf(Cp[t * LD + i]);
-      Ks[t * LD + i] *= expf(Tot[i] - Cum[t * LD + i]);
-    }
-    __syncthreads();
-
-    // y: four columns a thread, state term then the intra-chunk + bonus term
-    for (int e = tid; e < c * J4; e += NTHREADS) {
-      const int t = e / J4, q = e % J4;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float* rrow = Rs + t * LD;
+  // y and the state update of chunk n: warps 0-3 y, two rows x four
+  // columns a thread, the state term then A . v (bonus included); warps
+  // 4-7 the state update, two channels x four columns a thread.  Both read
+  // Sc; Sn is the other buffer.
+  auto output_and_state = [&](int n) {
+    const int par = n & 1;
+    {
+      const float* Rq = set_f(par, lay.Rq);
+      const float* Kq = set_f(par, lay.Kq);
+      const float* V = set_f(par, lay.V);
+      const float* E = set_f(par, lay.E);
+      const float* F = set_f(par, lay.F);
+      const float* ET = set_f(par, lay.ET);
+      const float* Sc = Sb + par * HD * JT;  // S before the chunk
+      float* Sn = Sb + (par ^ 1) * HD * JT;  // S after it
+      const float* Ab = A + par * MAX_CHUNK * LDA;
+      const long long t0 = (long long)n * c;
+      constexpr int HALF = NTHREADS / 2;
+      if (tid < HALF) {
+        for (int e = tid; e < (c + 1) / 2 * J4; e += HALF) {
+          const int t = 2 * (e / J4), q = e % J4;
+          const float* r0 = Rq + t * LD;
+          const float* Ep = E + (t / SB) * HD;
+          float4 acc0 = make_float4(0.f, 0.f, 0.f, 0.f), acc1 = acc0;
 #pragma unroll 8
-      for (int i = 0; i < HD; ++i) {
-        const float rv = rrow[i];
-        const float4 s4 = reinterpret_cast<const float4*>(Ss + i * JT)[q];
-        acc.x = fmaf(rv, s4.x, acc.x);
-        acc.y = fmaf(rv, s4.y, acc.y);
-        acc.z = fmaf(rv, s4.z, acc.z);
-        acc.w = fmaf(rv, s4.w, acc.w);
+          for (int i = 0; i < HD; ++i) {
+            const float4 s4 = reinterpret_cast<const float4*>(Sc + i * JT)[q];
+            const float ep = Ep[i];
+            fma4(acc0, r0[i] * ep, s4);
+            fma4(acc1, r0[LD + i] * ep, s4);
+          }
+          const float* a0 = Ab + t * LDA;
+#pragma unroll 4
+          for (int s = 0; s <= t + 1; ++s) {
+            const float4 v4 = reinterpret_cast<const float4*>(V + s * JT)[q];
+            fma4(acc0, a0[s], v4);  // A[t][t + 1] is 0
+            fma4(acc1, a0[LDA + s], v4);
+          }
+          store4<T>(yb + (t0 + t) * ys + 4 * q, acc0);
+          if (t + 1 < c) store4<T>(yb + (t0 + t + 1) * ys + 4 * q, acc1);
+        }
+      } else {
+        // S <- diag(2^{cum_T}) S + sum_p diag(F_p) sum_{s in p} Kq_s (x) v_s
+        for (int e = tid - HALF; e < HD / 2 * J4; e += HALF) {
+          const int i = 2 * (e / J4), q = e % J4;
+          float4 s0 = reinterpret_cast<const float4*>(Sc + i * JT)[q];
+          float4 s1 = reinterpret_cast<const float4*>(Sc + (i + 1) * JT)[q];
+          const float et0 = ET[i], et1 = ET[i + 1];
+          s0 = make_float4(s0.x * et0, s0.y * et0, s0.z * et0, s0.w * et0);
+          s1 = make_float4(s1.x * et1, s1.y * et1, s1.z * et1, s1.w * et1);
+          for (int p = 0; p < nsb; ++p) {
+            float4 part0 = make_float4(0.f, 0.f, 0.f, 0.f), part1 = part0;
+#pragma unroll 8
+            for (int w = 0; w < SB; ++w) {
+              const int s = p * SB + w;
+              const float4 v4 = reinterpret_cast<const float4*>(V + s * JT)[q];
+              fma4(part0, Kq[s * LD + i], v4);
+              fma4(part1, Kq[s * LD + i + 1], v4);
+            }
+            fma4(s0, F[p * HD + i], part0);
+            fma4(s1, F[p * HD + i + 1], part1);
+          }
+          reinterpret_cast<float4*>(Sn + i * JT)[q] = s0;
+          reinterpret_cast<float4*>(Sn + (i + 1) * JT)[q] = s1;
+        }
       }
-      const float* arow = As + t * lda;
-      for (int s = 0; s <= t; ++s) {
-        const float av = arow[s];
-        const float4 v4 = reinterpret_cast<const float4*>(Vs + s * JT)[q];
-        acc.x = fmaf(av, v4.x, acc.x);
-        acc.y = fmaf(av, v4.y, acc.y);
-        acc.z = fmaf(av, v4.z, acc.z);
-        acc.w = fmaf(av, v4.w, acc.w);
-      }
-      T* yrow = yb + (long long)(t0 + t) * ys + 4 * q;
-      yrow[0] = from_f32<T>(acc.x);
-      yrow[1] = from_f32<T>(acc.y);
-      yrow[2] = from_f32<T>(acc.z);
-      yrow[3] = from_f32<T>(acc.w);
     }
-    __syncthreads();  // y has read S
+  };
 
-    // S <- diag(exp(total)) S + sum_s k_dec_s (x) v_s
-    for (int e = tid; e < HD * J4; e += NTHREADS) {
-      const int i = e / J4, q = e % J4;
-      float4 s4 = reinterpret_cast<float4*>(Ss + i * JT)[q];
-      const float dec = Dec[i];
-      s4.x *= dec;
-      s4.y *= dec;
-      s4.z *= dec;
-      s4.w *= dec;
-      for (int s = 0; s < c; ++s) {
-        const float kd = Ks[s * LD + i];
-        const float4 v4 = reinterpret_cast<const float4*>(Vs + s * JT)[q];
-        s4.x = fmaf(kd, v4.x, s4.x);
-        s4.y = fmaf(kd, v4.y, s4.y);
-        s4.z = fmaf(kd, v4.z, s4.z);
-        s4.w = fmaf(kd, v4.w, s4.w);
-      }
-      reinterpret_cast<float4*>(Ss + i * JT)[q] = s4;
+  load_chunk<T, HD, CL>(Sr, Sk, Sl, Sv, rb, kb, lb, vb, rs, ks, ls, vs, 0, c, vec, tid);
+  cp_async_wait_all();
+  __syncthreads();
+  prep(0);
+  // the prep is visible, and every CTA of the cluster has started before
+  // any stores into another's A
+  if constexpr (CL > 1) cg::this_cluster().sync(); else __syncthreads();
+  nwork = nitems_s * NQ;
+  const int nch = Tlen / c;
+  auto stage = [&](int m) {
+    load_chunk<T, HD, CL>(Sr, Sk, Sl, Sv, rb, kb, lb, vb, rs, ks, ls, vs, (long long)m * c, c,
+                          vec, tid);
+  };
+  if (nch > 1) stage(1);
+  compute_a(0);
+  cp_async_wait_all();
+  if constexpr (CL > 1) cg::this_cluster().sync(); else __syncthreads();
+  if (nch > 1) prep(1);
+  __syncthreads();
+
+  // A runs one chunk ahead of y: A of chunk n + 1 needs only its own prep,
+  // so it shares a phase with y and the state update of chunk n, and the
+  // loads of chunk n + 2 are in flight under both
+  for (int n = 0; n < nch; ++n) {
+    if (n + 2 < nch) stage(n + 2);  // the staging is free: chunk n + 1 is prepped
+    output_and_state(n);
+    if (n + 1 < nch) compute_a(n + 1);
+    cp_async_wait_all();  // chunk n + 2 is staged (this thread's copies)
+    // (1) A of chunk n + 1 is whole in every CTA, S after chunk n is whole,
+    // the staging is visible
+    if constexpr (CL > 1) cg::this_cluster().sync(); else __syncthreads();
+    if (n + 2 < nch) prep(n & 1);  // chunk n + 2 into the set chunk n used
+    __syncthreads();  // (2) the prep is whole
+  }
+  const float* Sf = Sb + (nch & 1) * HD * JT;
+  for (int e = tid; e < HD * JT; e += NTHREADS)
+    S_fin[srow + (long long)(e / JT) * HD + e % JT] = Sf[e];
+}
+
+// Decode route (c == 1): one CTA per (head, batch).  Thread tid holds the
+// 16-byte column quad tid % QR of rows tid / QR, tid / QR + RPP, .. of S in
+// registers for the whole sweep; each token is staged in shared memory, the
+// state term is summed over the thread's rows and then over the RPP row
+// groups.  Two barriers a token.
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS_D)
+wkv_decode_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                  const T* __restrict__ lw, const T* __restrict__ u,
+                  const float* __restrict__ S0, T* __restrict__ y, float* __restrict__ S_fin,
+                  int Tlen, int H, Strides rs, Strides ks, Strides vs, Strides ls, long long usb,
+                  long long ush, int s0_vec) {
+  constexpr int QR = HD / 4, RPP = NTHREADS_D / QR, MR = (HD + RPP - 1) / RPP;
+  constexpr int GR = RPP < HD ? RPP : HD;            // row groups that hold rows
+  constexpr int NW = (HD + 31) / 32;                 // warps that stage a token
+  __shared__ __align__(16) float tok[2][4][HD];      // r, k, e^{lw}, v
+  __shared__ __align__(16) float red[2][RPP][HD];    // state term by row group
+  __shared__ float bonus[2][NW];                     // r.u.k by warp
+  const int tid = threadIdx.x, q = tid % QR, r0 = tid / QR;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const long long srow = ((long long)b * H + h) * HD * HD;
+  float4 S[MR];
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    const int i = r0 + m * RPP;
+    S[m] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (S0 && i < HD) {
+      const float* src = S0 + srow + (long long)i * HD + 4 * q;
+      S[m] = s0_vec ? *reinterpret_cast<const float4*>(src)
+                    : make_float4(src[0], src[1], src[2], src[3]);
     }
   }
-  __syncthreads();
-  for (int e = tid; e < HD * JT; e += NTHREADS) {
-    const int i = e / JT, jj = e % JT;
-    S_fin[srow + (long long)i * HD + jj] = Ss[e];
+  const float uu = tid < HD ? to_f32(u[b * usb + h * ush + tid]) : 0.f;
+  const long long ys = (long long)H * HD;
+  T* yb = y + (long long)b * Tlen * ys + h * HD;
+  for (int t = 0; t < Tlen; ++t) {
+    const int buf = t & 1;
+    if (tid < NW * 32) {
+      float ruk = 0.f;
+      if (tid < HD) {
+        const float rv = to_f32(r[b * rs.b + t * rs.t + h * rs.h + tid]);
+        const float kv = to_f32(k[b * ks.b + t * ks.t + h * ks.h + tid]);
+        tok[buf][0][tid] = rv;
+        tok[buf][1][tid] = kv;
+        tok[buf][2][tid] = expf(to_f32(lw[b * ls.b + t * ls.t + h * ls.h + tid]));
+        tok[buf][3][tid] = to_f32(v[b * vs.b + t * vs.t + h * vs.h + tid]);
+        ruk = rv * uu * kv;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) ruk += __shfl_xor_sync(0xffffffffu, ruk, off);
+      if (tid % 32 == 0) bonus[buf][tid / 32] = ruk;
+    }
+    __syncthreads();
+    const float4 v4 = reinterpret_cast<const float4*>(tok[buf][3])[q];
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int m = 0; m < MR; ++m) {
+      const int i = r0 + m * RPP;
+      if (i < HD) {
+        const float rv = tok[buf][0][i], kv = tok[buf][1][i], w = tok[buf][2][i];
+        fma4(acc, rv, S[m]);
+        S[m].x = fmaf(kv, v4.x, w * S[m].x);
+        S[m].y = fmaf(kv, v4.y, w * S[m].y);
+        S[m].z = fmaf(kv, v4.z, w * S[m].z);
+        S[m].w = fmaf(kv, v4.w, w * S[m].w);
+      }
+    }
+    if (r0 < GR) reinterpret_cast<float4*>(red[buf][r0])[q] = acc;
+    __syncthreads();
+    if (tid < HD) {
+      float yv = 0.f, bon = 0.f;
+#pragma unroll
+      for (int g = 0; g < GR; ++g) yv += red[buf][g][tid];
+#pragma unroll
+      for (int w = 0; w < NW; ++w) bon += bonus[buf][w];
+      yb[(long long)t * ys + tid] = from_f32<T>(fmaf(bon, tok[buf][3][tid], yv));
+    }
   }
+#pragma unroll
+  for (int m = 0; m < MR; ++m) {
+    const int i = r0 + m * RPP;
+    if (i < HD) *reinterpret_cast<float4*>(S_fin + srow + (long long)i * HD + 4 * q) = S[m];
+  }
+}
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// CTAs of a head that share A: pairs (1 where a head is one CTA).  A CTA of
+// a pair has the shared memory of two sets of working rows (the pipelined
+// prep); a CTA alone at hd 64 would need four diagonal sub-blocks' rows as
+// well, more than the card's 227 KB.
+template <int HD>
+constexpr int cluster_size() { return Tile<HD>::NC >= 2 ? 2 : 1; }
+
+// Once per kernel instance and device: allow the dynamic shared memory of
+// the largest chunk.
+template <typename T, int HD, int CL>
+cudaError_t allow_smem() {
+  constexpr int MAX_DEVICES = 64;
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(wkv_chunk_kernel<T, HD, CL>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Layout<T, HD, CL>(MAX_CHUNK).total);
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+template <typename T, int HD>
+cudaError_t launch_chunked(const void* r, const void* k, const void* v, const void* lw,
+                           const void* u, const float* S0, void* y, float* S_fin, int B,
+                           int Tlen, int H, int c, Strides rs, Strides ks, Strides vs, Strides ls,
+                           long long usb, long long ush, cudaStream_t stream) {
+  constexpr int EP = 16 / (int)sizeof(T), CL = cluster_size<HD>();
+  const cudaError_t attr = allow_smem<T, HD, CL>();
+  if (attr != cudaSuccess) return attr;
+  bool vec = aligned16(r) && aligned16(k) && aligned16(v) && aligned16(lw);
+  const Strides all[4] = {rs, ks, vs, ls};
+  for (const Strides& s : all) vec = vec && s.b % EP == 0 && s.t % EP == 0 && s.h % EP == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(Tile<HD>::NC, H, B);
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = Layout<T, HD, CL>((c + SB - 1) / SB * SB).total;
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = CL;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, wkv_chunk_kernel<T, HD, CL>, static_cast<const T*>(r), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(lw), static_cast<const T*>(u), S0,
+      static_cast<T*>(y), S_fin, Tlen, H, c, rs, ks, vs, ls, usb, ush, (int)vec);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_decode(const void* r, const void* k, const void* v, const void* lw,
+                          const void* u, const float* S0, void* y, float* S_fin, int B, int Tlen,
+                          int H, Strides rs, Strides ks, Strides vs, Strides ls, long long usb,
+                          long long ush, cudaStream_t stream) {
+  wkv_decode_kernel<T, HD><<<dim3(H, B), NTHREADS_D, 0, stream>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(lw), static_cast<const T*>(u), S0, static_cast<T*>(y), S_fin, Tlen,
+      H, rs, ks, vs, ls, usb, ush, (int)aligned16(S0));
+  return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* r, const void* k, const void* v, const void* lw, const void* u,
                    const float* S0, void* y, float* S_fin, int B, int Tlen, int H, int c,
                    Strides rs, Strides ks, Strides vs, Strides ls, long long usb, long long ush,
-                   cudaStream_t stream) {
-  const size_t smem = smem_floats<HD>((c + 3) & ~3) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      wkv_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(smem_floats<HD>(MAX_CHUNK) * sizeof(float)));
-  if (err != cudaSuccess) return err;
-  dim3 grid(HD / Tile<HD>::JT, H, B);
-  wkv_kernel<T, HD><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(lw), static_cast<const T*>(u), S0, static_cast<T*>(y), S_fin, Tlen,
-      H, c, rs, ks, vs, ls, usb, ush);
-  return cudaGetLastError();
+                   cudaStream_t st) {
+  if (c == 1)
+    return launch_decode<T, HD>(r, k, v, lw, u, S0, y, S_fin, B, Tlen, H, rs, ks, vs, ls, usb,
+                                ush, st);
+  return launch_chunked<T, HD>(r, k, v, lw, u, S0, y, S_fin, B, Tlen, H, c, rs, ks, vs, ls, usb,
+                               ush, st);
 }
 
 template <typename T>
@@ -342,7 +804,9 @@ extern "C" {
 // f32 contiguous, from r, k, v, lw addressed as base + b*sb + t*st + h*sh + i
 // (element strides, i contiguous), u as base + b*usb + h*ush + i, and S0
 // (B, H, hd, hd) f32 contiguous or null for zeros.  hd is 8, 16, 32 or 64;
-// c divides T and is at most 64; H, B <= 65535.
+// c divides T and is at most 64; H, B <= 65535.  c == 1 takes the decode
+// route; otherwise pairs of a head's CTAs share A (one CTA a head where
+// hd <= 16).
 int wkv_chunked(const void* r, const void* k, const void* v, const void* lw, const void* u,
                 const void* S0, void* y, void* S_fin, int dtype, int B, int T, int H, int hd,
                 int c, long long rsb, long long rst, long long rsh, long long ksb, long long kst,
@@ -358,8 +822,8 @@ int wkv_chunked(const void* r, const void* k, const void* v, const void* lw, con
   if (dtype == F32)
     err = launch_hd<float>(hd, r, k, v, lw, u, s0, y, sf, B, T, H, c, rs, ks, vs, ls, usb, ush, st);
   else if (dtype == BF16)
-    err = launch_hd<__nv_bfloat16>(hd, r, k, v, lw, u, s0, y, sf, B, T, H, c, rs, ks, vs, ls, usb,
-                                   ush, st);
+    err = launch_hd<__nv_bfloat16>(hd, r, k, v, lw, u, s0, y, sf, B, T, H, c, rs, ks, vs, ls,
+                                   usb, ush, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

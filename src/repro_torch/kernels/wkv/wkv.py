@@ -2,10 +2,20 @@
 
 Replaces the Pallas ``_wkv_kernel`` behind ``wkv_chunked``
 (``src/repro/kernels/wkv/wkv.py``) and runs where the JAX RWKV model runs
-its jnp ``wkv_scan``.  Bound by operations: the pairwise decay term takes
-``c*c/2*hd`` exponentials per chunk and row.  One block per (column tile of
-the state, head, batch entry) loops over the chunks with its columns of the
-``(hd, hd)`` state in shared memory; f32 arithmetic throughout.
+its jnp ``wkv_scan``.  Bound by the latency of a chunk's dependent phases
+(its exponentials were the bound before the factoring).  The kernel cuts
+each chunk into 16-row sub-blocks: off-diagonal sub-blocks of the pairwise
+matrix A factor into three decays, each ``exp`` of a sum <= 0, and become
+small dense products; only the diagonal sub-blocks take a per-pair
+exponential (30720 for a 64-row chunk of hd 64 instead of the pairwise
+form's 129024).  The ``hd / 16`` column tiles of a head's state run in
+thread-block clusters of two CTAs, each pair computing A once and sharing
+it through distributed shared memory (rwkv6-1.6b's 32 heads at batch 1 are
+then one wave on an H100); each chunk's inputs are copied by ``cp.async``
+while earlier chunks compute, and A runs a chunk ahead of the output and
+the state update, beside them.  A chunk of 1 (decode)
+takes a route of its own that keeps the state in registers and reads and
+writes it in 16-byte vectors.  f32 arithmetic throughout.
 
 Beside the Pallas kernel it starts from a given state ``S0`` and returns
 the final state, which is what the model's prefill and decode need; decode
@@ -100,3 +110,4 @@ def wkv_chunked(
     _build.LAUNCHES["wkv_chunked"] += 1
     _build.check(code, "wkv_chunked")
     return y, S_fin
+

@@ -1,8 +1,11 @@
 """WKV chunk scan of the port: the plain version against the JAX oracle and
 the JAX Pallas kernel (interpret mode), the model-layout wrapper against the
-JAX model's ``wkv_scan`` (state in and out included), and the CUDA kernel
-against the plain version on the card (``cuda``-marked, skipped without
-one).
+JAX model's ``wkv_scan`` (state in and out included), a float32 emulation
+of the CUDA kernel's factored sub-block arithmetic against both JAX
+functions, and the CUDA kernel against the plain version on the card
+(``cuda``-marked, skipped without one; at the decay clamp's ends against
+the plain version in float64, whose float32 run rounds cum - lw by more
+than the tolerance there).
 
 Tolerances, stated, as ``tests/kernels/test_wkv.py``: f32
 ``rtol=atol=3e-4`` (cumulative sums and the three products are summed in
@@ -146,6 +149,95 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         wkv_chunked(x, x, x, x, torch.zeros((2, 16)), chunk=8)
 
 
+# the model's decay clamp (models/rwkv.py): lw = -exp(clamp(., -8, 4))
+CLAMP_ENDS = {"strong": -float(np.exp(4.0)), "weak": -float(np.exp(-8.0))}
+
+
+def _factored_wkv(r, k, v, lw, u, *, chunk, S0=None, sb=16):
+    """Plain float32 emulation of the CUDA kernel's per-chunk arithmetic
+    (``csrc/wkv.cu``): rows r, k, v, lw (R, T, hd), u (R, hd), S0 (R, hd,
+    hd).  Each chunk is padded with zero rows to sub-blocks of ``sb`` rows;
+    sums of lw are taken inside each sub-block (Cl inclusive, Cp exclusive,
+    tot the sub-block's); off-diagonal sub-blocks of A are the three-factor
+    product (r e^Cp) diag(e^{b_{p-1} - b_q}) (k e^{tot - Cl})^T, diagonal
+    ones take exp(min(Cp_t - Cl_s, 0)) per pair plus the bonus; the state
+    term and update reuse the factors.  Returns (y (R, T, hd), S (R, hd, hd))."""
+    R, T, hd = r.shape
+    c = min(chunk, T)
+    S = torch.zeros((R, hd, hd)) if S0 is None else S0.clone()
+    ys = []
+    for t0 in range(0, T, c):
+        cp = -(-c // sb) * sb
+        nsb = cp // sb
+
+        def pad(x):
+            out = torch.zeros((R, cp, hd))
+            out[:, :c] = x[:, t0:t0 + c]
+            return out.view(R, nsb, sb, hd)
+
+        rc, kc, vc, lc = pad(r), pad(k), pad(v), pad(lw)
+        Cl = torch.cumsum(lc, dim=2)
+        Cp = torch.cat([torch.zeros_like(Cl[:, :, :1]), Cl[:, :, :-1]], dim=2)
+        tot = Cl[:, :, -1]  # (R, nsb, hd)
+        Rq = rc * torch.exp(Cp)
+        Kq = kc * torch.exp(tot[:, :, None] - Cl)
+        # b_{p-1} and cum_T - b_p, summed directly (no difference of large sums)
+        before = torch.stack([tot[:, :p].sum(1) for p in range(nsb)], 1)
+        after = torch.stack([tot[:, p + 1:].sum(1) for p in range(nsb)], 1)
+        A = torch.zeros((R, cp, cp))
+        lower = torch.tril(torch.ones(sb, sb, dtype=torch.bool), -1)[None, :, :, None]
+        for p in range(nsb):
+            pair = Cp[:, p, :, None] - Cl[:, p, None, :]  # (R, t, s, hd)
+            D = torch.where(lower, torch.exp(torch.clamp(pair, max=0.0)), 0.0)
+            blk = torch.einsum("rti,rsi,rtsi->rts", rc[:, p], kc[:, p], D)
+            blk = blk + torch.diag_embed(torch.sum(rc[:, p] * u[:, None] * kc[:, p], -1))
+            A[:, p * sb:(p + 1) * sb, p * sb:(p + 1) * sb] = blk
+            for q in range(p):
+                g = torch.exp(tot[:, q + 1:p].sum(1))  # e^{b_{p-1} - b_q}, exponent <= 0
+                A[:, p * sb:(p + 1) * sb, q * sb:(q + 1) * sb] = torch.einsum(
+                    "rti,ri,rsi->rts", Rq[:, p], g, Kq[:, q])
+        rdec = (Rq * torch.exp(before)[:, :, None]).reshape(R, cp, hd)
+        vf = vc.reshape(R, cp, hd)
+        y = torch.einsum("rti,rij->rtj", rdec, S) + torch.einsum("rts,rsj->rtj", A, vf)
+        ys.append(y[:, :c])
+        upd = torch.einsum("rpsi,rpsj->rpij", Kq, vc)  # per sub-block
+        S = torch.exp(tot.sum(1))[:, :, None] * S + torch.sum(torch.exp(after)[..., None] * upd, 1)
+    return torch.cat(ys, dim=1), S
+
+
+@pytest.mark.parametrize("decay,with_state", [
+    ("strong", False), ("strong", True), ("weak", False), ("weak", True), ("model", True),
+], ids=["strong-zeros", "strong-S0", "weak-zeros", "weak-S0", "model-S0"])
+@pytest.mark.parametrize("hd", [8, 64])
+@pytest.mark.parametrize("c", [1, 5, 12, 16, 17, 37, 64])
+def test_factored_chunk_arithmetic_matches_pallas_kernel_and_wkv_scan(c, hd, decay, with_state):
+    """The kernel's factored sub-block arithmetic, emulated in float32,
+    against the JAX Pallas kernel (interpret) and the JAX model's
+    ``wkv_scan`` (given state), over two chunks of c: lw at either end of
+    the model's decay clamp, or the model's random decays
+    -exp(N(-1, 0.5))."""
+    H, T = 2, (4 if c == 1 else 2 * c)
+    rng = np.random.default_rng(c * 100 + hd)
+    r, k, v = (rng.normal(size=(1, T, H, hd)).astype(np.float32) for _ in range(3))
+    lw = (np.full((1, T, H, hd), CLAMP_ENDS[decay], np.float32) if decay in CLAMP_ENDS else
+          -np.exp(rng.normal(-1.0, 0.5, size=(1, T, H, hd))).astype(np.float32))
+    u = (rng.normal(size=(H, hd)) * 0.3).astype(np.float32)
+    S0 = rng.normal(size=(1, H, hd, hd)).astype(np.float32) if with_state else None
+    rows = [torch.from_numpy(x[0].transpose(1, 0, 2).copy()) for x in (r, k, v, lw)]
+    y, S = _factored_wkv(*rows, torch.from_numpy(u), chunk=c,
+                         S0=None if S0 is None else torch.from_numpy(S0[0]))
+    assert torch.isfinite(y).all() and torch.isfinite(S).all()
+    want_y, want_S = j_wkv_scan(*map(jnp.asarray, (r, k, v, lw, u)),
+                                None if S0 is None else jnp.asarray(S0), chunk=c)
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y)[0].transpose(1, 0, 2),
+                               **TOL["float32"])
+    np.testing.assert_allclose(S.numpy(), np.asarray(want_S)[0], **TOL["float32"])
+    if S0 is None:
+        want_k = j_wkv_chunked(*(jnp.asarray(x.numpy()) for x in rows),
+                               jnp.asarray(u[:, None]), chunk=c, interpret=True)
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_k), **TOL["float32"])
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -220,3 +312,78 @@ def test_cuda_kernel_refuses_what_it_does_not_take(cuda):
         wkv_chunked(y, y, y, y, torch.zeros((2, 128), device=cuda), chunk=8)
     with pytest.raises(ValueError, match="above the kernel"):
         wkv_chunked(x[:, :96], x[:, :96], x[:, :96], x[:, :96], u, chunk=96)
+
+
+def _cuda_inputs(dev, B, T, H, hd, *, seed=0, dtype=torch.float32, state=False, lw_value=None):
+    g = torch.Generator(dev).manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H, hd), generator=g, device=dev) for _ in range(3))
+    lw = (torch.full_like(r, lw_value) if lw_value is not None else
+          -torch.exp(torch.randn((B, T, H, hd), generator=g, device=dev) * 0.5 - 1.0))
+    u = torch.randn((H, hd), generator=g, device=dev) * 0.3
+    S0 = torch.randn((B, H, hd, hd), generator=g, device=dev) if state else None
+    return [t.to(dtype) for t in (r, k, v, lw, u)], S0
+
+
+def _check_against_plain(args, S0, chunk, dtype="float32", plain=torch.float32):
+    """The kernel against ``wkv_plain`` run in ``plain`` (float64 where the
+    float32 plain version's own rounding is above the tolerance)."""
+    y, S = wkv_chunked(*args, chunk=chunk, S0=S0)
+    want_y, want_S = wkv_plain(*(t.to(plain) for t in args), chunk=chunk,
+                               S0=None if S0 is None else S0.to(plain))
+    assert torch.isfinite(y.float()).all() and torch.isfinite(S).all()
+    torch.testing.assert_close(y.float(), want_y.float().to(y.dtype).float(), **TOL[dtype])
+    torch.testing.assert_close(S, want_S.float(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+@pytest.mark.parametrize("c", [1, 5, 17, 37, 64])
+def test_cuda_factored_kernel_ragged_chunks(cuda, c, hd, B):
+    """Ragged chunks (padded to 16-row sub-blocks), every head size, at
+    batch 1 and 4 (A shared by a pair of CTAs of a head where hd >= 32),
+    two chunks, a given state at batch 4; c = 1 is the decode route over
+    three tokens."""
+    args, S0 = _cuda_inputs(cuda, B, 3 if c == 1 else 2 * c, 3, hd, seed=c + hd, state=B == 4)
+    _check_against_plain(args, S0, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 3])
+def test_cuda_decode_route_with_state(cuda, dtype, T):
+    """The c = 1 route at rwkv6-1.6b's decode shape, batch 4, from a state."""
+    args, S0 = _cuda_inputs(cuda, 4, T, 32, 64, seed=T, dtype=getattr(torch, dtype), state=True)
+    _check_against_plain(args, S0, 1, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 37])
+def test_cuda_kernel_per_row_bonus_misaligned_strides(cuda, chunk):
+    """A per-row u (B, H, hd) and inputs whose rows are not 16-byte aligned
+    (the plain-load staging path): views of (B, T, H, hd + 1) tensors."""
+    g = torch.Generator(cuda).manual_seed(3)
+    B, T, H, hd = 2, 74 if chunk == 37 else 3, 3, 32
+    r, k, v = (torch.randn((B, T, H, hd + 1), generator=g, device=cuda)[..., 1:] for _ in range(3))
+    lw = -torch.exp(torch.randn((B, T, H, hd + 1), generator=g, device=cuda) - 1.0)[..., :hd]
+    u = torch.randn((B, H, hd), generator=g, device=cuda) * 0.3
+    S0 = torch.randn((B, H, hd, hd), generator=g, device=cuda)
+    assert r.stride(1) % 4 and r.data_ptr() % 16
+    _check_against_plain((r, k, v, lw, u), S0, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ends", sorted(CLAMP_ENDS))
+def test_cuda_kernel_at_the_decay_clamp_ends(cuda, ends, dtype):
+    """lw = -exp(4) and -exp(-8) everywhere, the model's clamp ends: finite
+    and within tolerance, prefill and decode.  Held against the plain
+    version in float64: at lw = -exp(4) a 64-row sum of log decays reaches
+    -3494, where float32's cum - lw (the plain version's cum_prev) is off
+    from the previous row's sum by ulps of 2.4e-4, and the kernel's sums
+    inside 16-row sub-blocks are not."""
+    for B, T, chunk, state in ((1, 128, 64, False), (4, 1, 64, True), (2, 74, 37, True)):
+        args, S0 = _cuda_inputs(cuda, B, T, 32, 64, dtype=getattr(torch, dtype), state=state,
+                                lw_value=CLAMP_ENDS[ends])
+        _check_against_plain(args, S0, chunk, dtype, plain=torch.float64)
+
