@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU: the halo
-exchange (heat3d), llama3-8b serving and rwkv6-1.6b serving.
+exchange (heat3d) and its §VI sweep, llama3-8b serving and rwkv6-1.6b
+serving.
 
     python3 chip_smoke.py
 
@@ -92,6 +93,33 @@ D. Serving rwkv6-1.6b at full width and depth (random bf16 weights from
    difference (1e-4 x (1 + |logit|)), and the prefill token must agree.
    Prints prefill ms per length, decode ms per step, tokens per second, and
    the device idle share of the 2048-token prefill and of a decode step.
+E. The paper's §VI sweep on the card (``repro_torch.stencil.sweep``):
+   (1) the smoke grid (4 ranks on a (2, 2) torus, all five strategies, all
+   four packers, coalesce on and off, mappings row-major and blocked) on
+   the card and then on the CPU: each pair of records must agree on
+   ``collective_count``, ``wire_bytes``, ``message_bytes`` and the
+   intra/inter-node sends, and the exact packers' checksums bitwise (the
+   state is drawn on the host from the seed, so both start equal);
+   (2) the card grid, written to ``chiprun_out/BENCH_torch_stencil_sweep.json``:
+   4 and 8 ranks on (2, 2) and (4, 2) meshes, global interiors 64^3,
+   256^3 and (1024, 1024, 512) f32 with halo 1 (largest face messages of
+   8.7 KB, 133 KB and 1.05 MB at 8 ranks), all five strategies, packers
+   ``slice`` and ``cuda``, coalesce off and on, ``n_parts`` 1, 2 and 4,
+   200 cycles x 3 repeats.  Launch counts are zeroed just before each
+   cell's run and read just after (``run_cycles`` wrapped): every ``cuda``
+   cell must launch ``copy_convert``, every coalesced one ``gather_pack``
+   too, and a ``slice`` cell neither; every cell's last block must equal
+   its slab's first cell's (``standard``, ``slice``) bitwise (checked by
+   ``comb_measure``), and every ``cuda`` cell's checksum its ``slice``
+   twin's; ``summarize``'s rows and a table of the
+   best cell per strategy, size, packer and coalesce mode are printed;
+   (3) ``StrategyConfig(name="auto", packer="auto", coalesce="auto")`` at
+   the heat3d layout with the ``stencil27`` update, three times: with the
+   grid just written as the trace (must resolve by ``trace`` to the
+   argmin of ``us_per_cycle`` over that cell's records), with no trace and
+   a fresh cache (``calibration``), and again on that cache (``cache``, the
+   same candidate); each auto driver's cycles must be bitwise-equal to the
+   resolved static driver's on the same seed.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -102,6 +130,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -148,6 +177,14 @@ RWKV_SLOTS, RWKV_MAX_LEN, RWKV_NEW = 4, 4096, 16
 TIE_TOL = 2e-2
 #: a near tie in f32 logits: the f32 model tests' tolerance
 TIE_TOL_F32 = 1e-4
+#: phase E's card grid (the heat3d layout is its largest cell at 8 ranks)
+SWEEP_SIZES = ((64, 64, 64), (256, 256, 256), GLOBAL_INTERIOR)
+SWEEP_COUNTS = (4, 8)
+#: timed cycles a repeat in the card grid: 200 x 3 gives each cell 0.1-1 s
+#: of timed cycles (20 x 2 gave 3-60 ms, where the cells' run-to-run spread
+#: was about half their time)
+SWEEP_CYCLES, SWEEP_REPEATS = 200, 3
+AUTO_CYCLES = 3
 
 
 def fail(msg: str) -> None:
@@ -764,6 +801,229 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
     return out
 
 
+def sweep_phase(torch, dev, out_dir: pathlib.Path) -> dict:
+    """Phase E: the §VI sweep on the card (see the module docstring)."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.core import autotune
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.core.transport import get_packer
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.stencil27.ref import jacobi_weights
+    from repro_torch.stencil import Domain, StrategyConfig, comb, make_driver
+    from repro_torch.stencil import sweep
+    from repro_torch.stencil.heat3d import DOMAIN_AXES, heat3d_update
+    from sweep_table import table
+
+    clock, out = {}, {}
+
+    # -- E1: the smoke grid on the card, then on the CPU --------------------
+    t0 = time.perf_counter()
+    smoke = sweep.smoke_config(4)
+    card = sweep.sweep_cells(smoke, device=dev)
+    cpu = sweep.sweep_cells(smoke, device="cpu")
+    static = ("collective_count", "wire_bytes", "message_bytes", "intra_node_sends",
+              "inter_node_sends")
+    coords = ("strategy", "packer", "coalesce", "n_parts", "mapping", "mesh_shape")
+    if len(card) != len(cpu) or not card:
+        fail(f"smoke grid: {len(card)} card records, {len(cpu)} CPU records")
+    lossy_err = 0.0
+    for a, b in zip(card, cpu):
+        cell = {k: a[k] for k in coords}
+        if cell != {k: b[k] for k in coords}:
+            fail(f"smoke grid: card cell {cell} beside CPU cell {[b[k] for k in coords]}")
+        if {k: a[k] for k in static} != {k: b[k] for k in static}:
+            fail(f"smoke grid {cell}: card {[a[k] for k in static]} != CPU {[b[k] for k in static]}")
+        if get_packer(a["packer"]).wire_tolerance("float32") == (0.0, 0.0):
+            if a["checksum"] != b["checksum"]:
+                fail(f"smoke grid {cell}: card checksum {a['checksum']!r} != CPU {b['checksum']!r}")
+        else:
+            lossy_err = max(lossy_err, abs(a["checksum"] - b["checksum"]))
+    clock["smoke_s"] = time.perf_counter() - t0
+    print(f"sweep smoke grid: {len(card)} cells on {card[0]['device']} equal the CPU's "
+          f"({', '.join(static)}; exact packers' checksums bitwise; lossy packers' checksums "
+          f"differ by at most {lossy_err!r}) in {clock['smoke_s']:.1f} s", flush=True)
+
+    # -- E2: the card grid, launch counts per cell ---------------------------
+    grid = sweep.SweepConfig(device_counts=SWEEP_COUNTS, part_counts=(1, 2, 4),
+                             sizes=SWEEP_SIZES, packers=("slice", "cuda"), mesh_ndim=2,
+                             n_cycles=SWEEP_CYCLES, repeats=SWEEP_REPEATS)
+    cell_launches = []
+    run_cycles = comb.run_cycles
+
+    def counted(driver, x, **kw):
+        _build.reset_launches()
+        res = run_cycles(driver, x, **kw)
+        torch.cuda.synchronize()
+        cell_launches.append(dict(_build.LAUNCHES))
+        return res
+
+    t0 = time.perf_counter()
+    comb.run_cycles = counted
+    try:
+        records = sweep.run_sweep(grid, device=dev)
+    finally:
+        comb.run_cycles = run_cycles
+    clock["grid_s"] = time.perf_counter() - t0
+    if len(records) != len(cell_launches):
+        fail(f"sweep grid: {len(records)} records, {len(cell_launches)} counted cells")
+    totals: dict[str, int] = {}
+    for r, launched in zip(records, cell_launches):
+        r["launches"] = launched
+        want = set()
+        if r["packer"] == "cuda":
+            want = {"copy_convert", "gather_pack"} if r["coalesce"] else {"copy_convert"}
+        got = {k for k, v in launched.items() if v > 0}
+        if got != want:
+            fail(f"sweep grid {r['strategy']}@{r['packer']} coalesce={r['coalesce']} "
+                 f"p{r['n_parts']} {r['global_interior']} on {r['mesh_shape']}: launched "
+                 f"{launched}, expected {sorted(want)}")
+        if not math.isfinite(r["checksum"]) or r["device"] != torch.cuda.get_device_name(dev):
+            fail(f"sweep grid record {r['strategy']}: checksum {r['checksum']} device {r['device']}")
+        for k, v in launched.items():
+            totals[k] = totals.get(k, 0) + v
+    # comb_measure held every cell's last block against its slab's first
+    # cell (standard@slice) with torch.equal; each cuda cell's checksum must
+    # also equal its slice twin's, from the same start
+    def twin_key(r):
+        return (r["n_devices"], tuple(r["global_interior"]), r["mapping"], r["strategy"],
+                r["coalesce"], r["n_parts"])
+
+    slice_sums = {twin_key(r): r["checksum"] for r in records if r["packer"] == "slice"}
+    pairs = 0
+    for r in records:
+        if r["packer"] == "cuda":
+            if slice_sums.get(twin_key(r)) != r["checksum"]:
+                fail(f"sweep grid {twin_key(r)}: cuda checksum {r['checksum']!r} != slice "
+                     f"{slice_sums.get(twin_key(r))!r}")
+            pairs += 1
+    slabs = len({twin_key(r)[:3] for r in records})
+    if pairs == 0 or pairs != len(records) - len(slice_sums):
+        fail(f"sweep grid: {pairs} cuda/slice pairs among {len(records)} records")
+    bench = out_dir / "BENCH_torch_stencil_sweep.json"
+    sweep.write_bench_json([{k: v for k, v in r.items() if k != "launches"} for r in records],
+                           str(bench), config=sweep.config_block(grid, device=dev))
+    for row in sweep.summarize(records):
+        print(row)
+    print(table(records))
+    print(f"sweep grid: {len(records)} records -> {bench.relative_to(ROOT)} in "
+          f"{clock['grid_s']:.1f} s; launches {totals} (copy_convert on every cuda cell, "
+          f"gather_pack on every coalesced one, none on slice); {len(records) - slabs} cells' "
+          f"last blocks bitwise-equal to their slab's first (torch.equal), {pairs} cuda cells' "
+          f"checksums equal to their slice twins'", flush=True)
+    out.update(grid=dataclasses.asdict(grid), launches=totals, bitwise_cells=len(records) - slabs,
+               checksum_pairs=pairs,
+               cell_launches=[[r["strategy"], r["packer"], r["coalesce"], r["n_parts"],
+                               r["global_interior"], r["launches"]] for r in records])
+
+    # where an exchange-only cycle's time goes in the grid's largest cell
+    # (packer cuda, coalesced; torch.profiler over 3 cycles)
+    t0 = time.perf_counter()
+    bdom = Domain(make_mesh((4, 2), ("px", "py"), device=dev), GLOBAL_INTERIOR,
+                  ("px", "py", None))
+    x = bdom.random(0)
+    breakdown = {}
+    for name in grid.strategies:
+        drv = make_driver(StrategyConfig(name=name, packer="cuda",
+                                         n_parts=4 if name == "partitioned" else 1),
+                          bdom.mesh, bdom.halo_spec, ndim=3)
+        x = drv.wait(drv.step(x))
+        b = breakdown[name] = comb.device_breakdown(drv, x)
+        drv.free()
+        top = ", ".join(f"{short_kernel_name(k['name'])} x{k['launches_per_cycle']:g} "
+                        f"{k['us_per_cycle']:.0f}us" for k in b["kernels"][:5])
+        print(f"sweep {name}@cuda {GLOBAL_INTERIOR} on (4, 2) breakdown: window "
+              f"{b['window_us_per_cycle']:.0f} us/cycle, device busy {b['busy_us_per_cycle']:.0f} "
+              f"us, idle share {b['idle_share']:.3f}; {top}", flush=True)
+    del x
+    clock["breakdown_s"] = time.perf_counter() - t0
+    out["breakdown"] = breakdown
+
+    # -- E3: auto at the heat3d layout: trace, calibration, cache ------------
+    t0 = time.perf_counter()
+    dom = Domain(make_mesh(*MESH, device=dev), GLOBAL_INTERIOR, DOMAIN_AXES)
+    update = heat3d_update(jacobi_weights().numpy(), dev)
+    auto = StrategyConfig(name="auto", packer="auto", coalesce="auto")
+    cell = [r for r in records if r["n_devices"] == 8 and r["message_bytes"] == dom.max_face_bytes()
+            and r["node_size"] == 4 and tuple(r["mesh_shape"]) == MESH[0]]
+    if len(cell) != 28:
+        fail(f"auto: the trace holds {len(cell)} records of the heat3d cell, not 28")
+    best = min(cell, key=lambda r: r["us_per_cycle"])
+    saved = {k: os.environ.get(k) for k in (autotune.TRACE_ENV, autotune.CACHE_ENV)}
+    runs = {}
+    x0 = dom.random(0)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for run, trace, cache, want in (
+                    ("trace", str(bench), "trace_cache.json", "trace"),
+                    ("calibration", None, "cache.json", "calibration"),
+                    ("cache", None, "cache.json", "cache")):
+                if trace is None:
+                    os.environ.pop(autotune.TRACE_ENV, None)
+                else:
+                    os.environ[autotune.TRACE_ENV] = trace
+                os.environ[autotune.CACHE_ENV] = os.path.join(tmp, cache)
+                autotune.reset_default_tuners()
+                drv = make_driver(auto, dom.mesh, dom.halo_spec, ndim=3, update_fn=update)
+                x = x0.clone()
+                t1 = time.perf_counter()
+                drv.init(x)
+                resolve_s = time.perf_counter() - t1
+                _build.reset_launches()
+                for _ in range(AUTO_CYCLES):
+                    x = drv.step(x)
+                x = drv.wait(x)
+                launched = dict(_build.LAUNCHES)
+                picked = (drv.strategy, drv.config.packer, drv.config.coalesce, drv.n_parts)
+                static_drv = make_driver(StrategyConfig(
+                    name=picked[0], packer=picked[1], coalesce=picked[2], n_parts=picked[3]),
+                    dom.mesh, dom.halo_spec, ndim=3, update_fn=update)
+                y = x0.clone()
+                for _ in range(AUTO_CYCLES):
+                    y = static_drv.step(y)
+                y = static_drv.wait(y)
+                equal = torch.equal(x, y)
+                drv.free()
+                static_drv.free()
+                del x, y
+                runs[run] = dict(selected_by=drv.selected_by, candidate=list(picked),
+                                 predicted_us=drv.predicted_us, calibration_us=drv.calibration_us,
+                                 resolve_s=resolve_s, launches=launched)
+                print(f"auto ({run}): {drv.selected_by} -> {picked}, predicted_us="
+                      f"{drv.predicted_us!r}, calibration_us={drv.calibration_us!r}, resolve+init "
+                      f"{resolve_s:.2f} s, launches {launched}, {AUTO_CYCLES} cycles bitwise-equal "
+                      f"to the static driver: {equal}", flush=True)
+                if drv.selected_by != want:
+                    fail(f"auto ({run}): selected_by {drv.selected_by!r}, expected {want!r}")
+                if not equal:
+                    fail(f"auto ({run}): cycles differ from the static {picked} driver's")
+                if launched.get("stencil27", 0) < AUTO_CYCLES or (
+                        picked[1] == "cuda" and launched.get("copy_convert", 0) <= 0):
+                    fail(f"auto ({run}): launches {launched} on {picked}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.reset_default_tuners()
+    want = [best["strategy"], best["packer"], best["coalesce"], best["n_parts"]]
+    if runs["trace"]["candidate"] != want or runs["trace"]["predicted_us"] != best["us_per_cycle"]:
+        fail(f"auto (trace): {runs['trace']} is not the cell's argmin {want} "
+             f"({best['us_per_cycle']} us)")
+    if runs["cache"]["candidate"] != runs["calibration"]["candidate"]:
+        fail(f"auto (cache): {runs['cache']['candidate']} != calibration's "
+             f"{runs['calibration']['candidate']}")
+    clock["auto_s"] = time.perf_counter() - t0
+    print(f"auto at the heat3d layout: trace picks the argmin {want} of the cell's 28 records, "
+          f"calibration picks {runs['calibration']['candidate']} in "
+          f"{runs['calibration']['calibration_us'] / 1e6:.2f} s, the cache replays it; phase E "
+          f"clock {json.dumps({k: round(v, 1) for k, v in clock.items()})}", flush=True)
+    out.update(auto=runs, clock=clock, smoke_cells=len(card), records=len(records))
+    return out
+
+
 def main() -> int:
     import contextlib
     import io
@@ -823,7 +1083,12 @@ def main() -> int:
     ranks, local = mesh.size, dom.local_ghosted
     print(f"domain {GLOBAL_INTERIOR} on mesh {mesh.shape}: block {local} per rank, "
           f"faces {dom.face_bytes()} bytes", flush=True)
+    t0 = time.perf_counter()
     x = dom.random(0)
+    torch.cuda.synchronize()
+    random_s = time.perf_counter() - t0
+    print(f"Domain.random at {GLOBAL_INTERIOR}: {random_s:.2f} s (one seeded host draw and "
+          f"its upload)", flush=True)
     xb = x.view(ranks, *local)
     l2_flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     flush = l2_flush.zero_
@@ -1093,7 +1358,8 @@ def main() -> int:
     # the same cycles through packer `slice` and the plain stencil
     plain = make_driver(StrategyConfig(name="persistent", packer="slice"), mesh, dom.halo_spec,
                         ndim=3, update_fn=heat3d_update(weights, dev, stencil=stencil27_ref))
-    ref_x = dom.random(2)
+    x2 = dom.random(2)
+    ref_x = x2.clone()
     for _ in range(VERIFY_CYCLES):
         ref_x = plain.step(ref_x)
     ref_x = plain.wait(ref_x)
@@ -1103,7 +1369,7 @@ def main() -> int:
     for name in strategies:
         drv = make_driver(StrategyConfig(name=name, packer="cuda", n_parts=4 if name == "partitioned" else 1),
                           mesh, dom.halo_spec, ndim=3, update_fn=update)
-        y = dom.random(2)
+        y = x2.clone()
         for _ in range(VERIFY_CYCLES):
             y = drv.step(y)
         y = drv.wait(y)
@@ -1129,7 +1395,7 @@ def main() -> int:
               f"{b['direct_copy_us_per_cycle']:.0f} us", flush=True)
 
     # -- A. flash_attention against its plain version ------------------------
-    del drv, plain, ref_x, interior, weights, update, dom, mesh
+    del drv, plain, ref_x, x2, interior, weights, update, dom, mesh
     torch.cuda.empty_cache()
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 
@@ -1231,15 +1497,21 @@ def main() -> int:
 
     # -- D. serving rwkv6-1.6b at full width: the third main path ------------
     record["rwkv_serving"] = serve_rwkv(torch, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()  # the rwkv6 weights go before phase E
+
+    # -- E. the §VI sweep on the card: smoke grid, card grid, auto ------------
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    record["sweep"] = sweep_phase(torch, dev, out_dir)
 
     # -- 5. results -----------------------------------------------------------
     record.update(
         kernels=list(kernels.values()),
         heat3d={label: r.record() for label, r in results.items()},
         launches_per_cycle=per_cycle, exchange_cells=cells, breakdown=breakdown,
+        random_s=random_s,
     )
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

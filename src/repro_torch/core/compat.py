@@ -31,6 +31,11 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
+def device_name(device: torch.device) -> str:
+    """What a record names its device by: the card's name, or ``"cpu"``."""
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+
+
 def synchronize(device: torch.device) -> None:
     """The Comb barrier: wait for all work queued on ``device``."""
     if device.type == "cuda":

@@ -29,22 +29,7 @@ from repro_torch.core.transport import (
     get_packer,
     get_transport,
 )
-
-#: process-to-node placements the JAX package registers
-#: (``repro.launch.mapping``); the port keeps its own copy of the names
-#: until mapping itself is ported.  Identity only: schedules never depend
-#: on it, plan keys do.
-MAPPINGS = ("row-major", "blocked", "recursive-bisection")
-MAPPING_ALIASES = {"rb": "recursive-bisection"}
-
-
-def canonical_mapping(name: str) -> str:
-    """Resolve aliases (``"rb"``); unknown names raise with the list."""
-    name = MAPPING_ALIASES.get(name, name)
-    if name not in MAPPINGS:
-        raise KeyError(f"unknown mapping {name!r}; registered: {', '.join(MAPPINGS)} "
-                       f"(aliases: {', '.join(f'{a}={c}' for a, c in MAPPING_ALIASES.items())})")
-    return name
+from repro_torch.launch.mapping import canonical_mapping
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +47,10 @@ class HaloSpec:
     transport: str = "loopback"
     coalesce: bool = True
     mapping: str = "row-major"
+    #: autotune provenance ("trace"/"model"/"calibration"/...) when the
+    #: cell was picked by :mod:`repro_torch.core.autotune`; part of the plan
+    #: identity, so an autotuned plan never aliases a hand-pinned one
+    selected_by: str | None = None
     epoch: int | None = None
 
     def __post_init__(self):
@@ -82,7 +71,7 @@ class HaloSpec:
         return ScheduleInfo(
             kind=kind, mesh_axes=self.mesh_axes, packer=self.packer,
             transport=self.transport, coalesce=self.coalesce,
-            mapping=self.mapping, epoch=self.epoch,
+            mapping=self.mapping, selected_by=self.selected_by, epoch=self.epoch,
         )
 
 

@@ -258,6 +258,8 @@ class ScheduleInfo:
     transport: str = "loopback"
     coalesce: bool = False
     mapping: str = "row-major"
+    #: autotune provenance of the cell (``None`` for caller-pinned cells)
+    selected_by: str | None = None
     epoch: int | None = None
 
     def tag(self) -> str:
@@ -265,9 +267,116 @@ class ScheduleInfo:
         base = f"{self.kind}[{axes}]@{self.packer}/{self.transport}"
         if self.mapping != "row-major":
             base += f"%{self.mapping}"
+        if self.selected_by is not None:
+            base += f"?{self.selected_by}"
         if self.epoch is not None:
             base += f"!e{self.epoch}"
         return base + ("+coalesced" if self.coalesce else "")
+
+
+# ---------------------------------------------------------------------------
+# hop locality: which scheduled sends cross a node boundary
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class HopLocality:
+    """Inter- vs intra-node tally of one schedule's directed sends; fields
+    as ``repro.core.transport.HopLocality``.
+
+    Counted per rank-level directed send: every mesh coordinate sends each
+    (expanded-partition) message once whose full hop chain is defined
+    (clipped non-periodic edges drop the send); hop-free self-copies are
+    not counted.  ``*_elems`` weight each send by its slab element count.
+    """
+
+    intra_sends: int = 0
+    inter_sends: int = 0
+    intra_elems: int = 0
+    inter_elems: int = 0
+
+    @property
+    def total_sends(self) -> int:
+        return self.intra_sends + self.inter_sends
+
+    def __add__(self, other: "HopLocality") -> "HopLocality":
+        return HopLocality(
+            self.intra_sends + other.intra_sends,
+            self.inter_sends + other.inter_sends,
+            self.intra_elems + other.intra_elems,
+            self.inter_elems + other.inter_elems,
+        )
+
+
+def message_locality(
+    msg: Message,
+    *,
+    axis_order: Sequence[str],
+    axis_sizes: Mapping[str, int],
+    node_of: Sequence[int],
+) -> HopLocality:
+    """Classify one message's per-rank sends as intra- vs inter-node.
+
+    ``axis_order`` is the mesh's axis-name tuple; ``node_of[flat_coord]``
+    is the node id at each row-major coordinate
+    (:meth:`repro_torch.launch.mapping.Mapping.node_of`, or
+    :func:`repro_torch.launch.mapping.mesh_node_ids` for a live mesh).  Each
+    partition is walked over every source coordinate: the composed hop
+    chain maps it to its destination, and the send is inter-node iff the
+    two coordinates live on different nodes.
+    """
+    shape = tuple(axis_sizes[name] for name in axis_order)
+    if len(node_of) != math.prod(shape):
+        raise ValueError(f"node_of has {len(node_of)} entries for mesh {shape}")
+    index = {name: i for i, name in enumerate(axis_order)}
+
+    def flat(coords: Sequence[int]) -> int:
+        idx = 0
+        for c, k in zip(coords, shape):
+            idx = idx * k + c
+        return idx
+
+    out = HopLocality()
+    for part in msg.partitions():
+        if not part.hops:
+            continue  # self-copy: nothing crosses any boundary
+        maps = [(index[name], dict(perm)) for name, perm in part.hops]
+        elems = math.prod(part.shape)
+        intra = inter = 0
+        for coords in itertools.product(*[range(k) for k in shape]):
+            dst = list(coords)
+            for a, m in maps:
+                if coords[a] not in m:
+                    dst = None  # clipped edge: this rank sends nothing
+                    break
+                dst[a] = m[coords[a]]
+            if dst is None:
+                continue
+            if node_of[flat(coords)] == node_of[flat(dst)]:
+                intra += 1
+            else:
+                inter += 1
+        out = out + HopLocality(intra, inter, intra * elems, inter * elems)
+    return out
+
+
+def schedule_locality(
+    groups: Sequence[Sequence[Message]],
+    *,
+    axis_order: Sequence[str],
+    axis_sizes: Mapping[str, int],
+    node_of: Sequence[int],
+) -> HopLocality:
+    """Whole-schedule hop-locality tally (sum over every group's messages):
+    what the §VI sweep records per cell (``intra_node_sends`` /
+    ``inter_node_sends``), from the static tables alone."""
+    out = HopLocality()
+    for group in groups:
+        for msg in group:
+            out = out + message_locality(
+                msg, axis_order=axis_order, axis_sizes=axis_sizes, node_of=node_of,
+            )
+    return out
 
 
 # ---------------------------------------------------------------------------

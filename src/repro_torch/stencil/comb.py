@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import profiling
-from repro_torch.core.compat import synchronize
+from repro_torch.core.autotune import AUTO
+from repro_torch.core.compat import device_name, synchronize
 from repro_torch.core.transport import get_packer
 from repro_torch.stencil.domain import Domain
 from repro_torch.stencil.strategies import (
@@ -62,10 +63,6 @@ class CycleResult:
         return dataclasses.asdict(self)
 
 
-def device_name(device: torch.device) -> str:
-    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-
-
 def run_cycles(
     driver: ExchangeStrategy,
     x: torch.Tensor,
@@ -73,10 +70,12 @@ def run_cycles(
     n_cycles: int = 50,
     warmup: int = 3,
     repeats: int = 3,
-) -> CycleResult:
+    return_final: bool = False,
+) -> CycleResult | tuple[CycleResult, torch.Tensor]:
     """Time ``n_cycles`` exchange(+update) iterations, paper-style.
     ``init_us`` (tables, uploads, buffers) is charged only to strategies
-    declaring ``amortizes_init``."""
+    declaring ``amortizes_init``.  With ``return_final`` the last block
+    comes back beside the result (valid until the driver is freed)."""
     dev = driver.mesh.device
     cache = driver.config.resolve_cache()
     hits0, inits0, invals0 = (
@@ -111,8 +110,10 @@ def run_cycles(
             x = driver.step(x)
         driver.wait(x)  # Waitall before stopping the clock
         times.append((time.perf_counter() - t0) / n_cycles * 1e6)
-    checksum = float(x.mean(dtype=torch.float64))
-    return CycleResult(
+    # sum then one division, the same on the card and on the CPU (a float64
+    # sum of a small f32 block is exact in any order)
+    checksum = float(x.sum(dtype=torch.float64)) / x.numel()
+    result = CycleResult(
         strategy=driver.strategy, us_per_cycle=float(np.mean(times)),
         init_us=init_us, n_cycles=n_cycles, repeats=repeats, checksum=checksum,
         n_parts=driver.n_parts, packer=driver.config.packer,
@@ -120,8 +121,14 @@ def run_cycles(
         mapping=driver.config.mapping, collective_count=collective_count,
         plan_cache_inits=plan_inits, plan_cache_hits=plan_hits,
         replan_us=replan_us, plan_cache_invalidations=plan_invals,
+        # autotuned drivers carry their selection provenance; pinned ones
+        # have none (only AutoStrategy defines these)
+        selected_by=getattr(driver, "selected_by", None),
+        predicted_us=getattr(driver, "predicted_us", None),
+        calibration_us=getattr(driver, "calibration_us", 0.0),
         device=device_name(dev),
     )
+    return (result, x) if return_final else result
 
 
 def device_breakdown(driver: ExchangeStrategy, x: torch.Tensor, *, n_cycles: int = 3) -> dict:
@@ -140,6 +147,9 @@ def device_breakdown(driver: ExchangeStrategy, x: torch.Tensor, *, n_cycles: int
 def _as_config(strategy: str | StrategyConfig, default_n_parts: int) -> StrategyConfig:
     if isinstance(strategy, StrategyConfig):
         return strategy
+    if strategy == AUTO:
+        # the bare name opens every autotunable axis
+        return StrategyConfig(name=AUTO, packer=AUTO, coalesce=AUTO)
     return StrategyConfig(name=strategy,
                           n_parts=default_n_parts if strategy == "partitioned" else 1)
 
@@ -163,9 +173,18 @@ def comb_measure(
 ) -> dict[str, CycleResult]:
     """Measure every strategy on one domain (on the domain's device) from
     the same seeded state; checksums must agree within the packers' wire
-    tolerance.  Keys follow :func:`result_label` (``#pN``/``#2`` suffixes
-    for repeats, as in the JAX package)."""
+    tolerance, and every exact-packer cell's last block must equal the first
+    exact-packer cell's bitwise (the JAX package checks checksums only).
+    Keys follow :func:`result_label` (``#pN``/``#2`` suffixes for repeats,
+    as in the JAX package).  The seeded state is drawn once and each
+    strategy steps its own copy."""
+
+    def wire_tol(res: CycleResult) -> tuple[float, float]:
+        return get_packer(res.packer).wire_tolerance(domain.dtype)
+
     results: dict[str, CycleResult] = {}
+    exact_ref: tuple[str, torch.Tensor] | None = None
+    x0 = domain.random(seed)
     for strategy in strategies:
         config = _as_config(strategy, n_parts)
         label = result_label(config.name, config.packer, config.coalesce)
@@ -176,17 +195,24 @@ def comb_measure(
             while label in results:
                 label = f"{base}#{n}"
                 n += 1
-        x = domain.random(seed)
+        x = x0.clone()
         driver = make_driver(config, domain.mesh, domain.halo_spec,
                              ndim=len(domain.global_interior), update_fn=update_fn)
         try:
-            results[label] = run_cycles(driver, x, n_cycles=n_cycles, repeats=repeats)
+            res, final = run_cycles(driver, x, n_cycles=n_cycles, repeats=repeats,
+                                    return_final=True)
+            if wire_tol(res) == (0.0, 0.0):
+                if exact_ref is None:
+                    exact_ref = (label, final.clone())
+                elif not torch.equal(final, exact_ref[1]):
+                    raise AssertionError(f"strategy {label}'s block differs from "
+                                         f"{exact_ref[0]}'s (exact packers move data bitwise)")
+            results[label] = res
+            del final
         finally:
             driver.free()
         del x
-
-    def wire_tol(res: CycleResult) -> tuple[float, float]:
-        return get_packer(res.packer).wire_tolerance(domain.dtype)
+    del x0, exact_ref
 
     sums = {s: r.checksum for s, r in results.items()}
     ref_label, ref_res = next(iter(results.items()))

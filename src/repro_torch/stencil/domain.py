@@ -101,6 +101,10 @@ class Domain:
             out[name] = slab * self.torch_dtype.itemsize
         return out
 
+    def max_face_bytes(self) -> int:
+        """Largest single face message: the sweep's message-size coordinate."""
+        return max(self.face_bytes().values(), default=0)
+
     def halo_spec(self, strategy: str = "standard", n_parts: int = 1) -> HaloSpec:
         return HaloSpec(
             mesh_axes=tuple(name for _, name in self.decomposed),
@@ -151,11 +155,12 @@ class Domain:
         return t.float().cpu().numpy() if t.dtype == torch.bfloat16 else t.cpu().numpy()
 
     def random(self, seed: int = 0) -> torch.Tensor:
-        """Unit-normal interior drawn on the device from a seeded
-        ``torch.Generator`` (not the JAX package's numpy draw)."""
-        g = torch.Generator(device=self.device).manual_seed(seed)
-        interior = torch.randn(self.global_interior, generator=g, device=self.device)
-        return self.from_global_interior(interior)
+        """Unit-normal interior drawn on the host from one seeded CPU
+        ``torch.Generator``, then uploaded, so one seed gives the same state
+        on the card and on the CPU, and a card run of a cell can be compared
+        with a CPU run bitwise.  Not the JAX package's numpy draw."""
+        g = torch.Generator().manual_seed(seed)
+        return self.from_global_interior(torch.randn(self.global_interior, generator=g))
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,10 @@ work on its free ``(R, *local_ghosted)`` view.
   stale buffer, the boundary shells from the exchanged one; the input is
   never written.
 
+``"auto"`` on any of ``name``, ``packer`` or ``coalesce`` routes to
+:class:`AutoStrategy` (not registered: a selector, not a schedule), which
+resolves the open axes through :mod:`repro_torch.core.autotune`.
+
 ``update_fn`` maps the batched ``(R, *local)`` block to its updated block;
 it may update its argument in place and return it.
 """
@@ -28,14 +32,16 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import time
 from typing import Callable, ClassVar
 
 import torch
 
-from repro_torch.core.compat import synchronize
+from repro_torch.core import autotune
+from repro_torch.core.autotune import AUTO
+from repro_torch.core.compat import device_name, synchronize
 from repro_torch.core.halo import (
     HaloSpec,
-    canonical_mapping,
     fused_message_group,
     sequential_message_groups,
 )
@@ -46,8 +52,10 @@ from repro_torch.core.transport import (
     get_packer,
     get_transport,
     schedule_layouts,
+    schedule_locality,
     scheduled_collective_count,
 )
+from repro_torch.launch.mapping import canonical_mapping, default_node_size, mesh_node_ids
 
 UpdateFn = Callable[[torch.Tensor], torch.Tensor]
 
@@ -55,10 +63,13 @@ UpdateFn = Callable[[torch.Tensor], torch.Tensor]
 @dataclasses.dataclass(frozen=True)
 class StrategyConfig:
     """Strategy knobs as one typed value; fields as
-    ``repro.stencil.strategies.StrategyConfig`` (no ``auto`` selector yet).
+    ``repro.stencil.strategies.StrategyConfig``.
 
     ``donate`` — the step may update its input in place (the buffer-reuse
     analogue); ``False`` steps a copy and leaves the input untouched.
+    ``name``, ``packer`` and ``coalesce`` also accept ``"auto"``:
+    :func:`make_driver` then builds an :class:`AutoStrategy`, which tunes
+    every ``auto`` axis and keeps the others pinned.
     """
 
     name: str = "standard"
@@ -67,7 +78,7 @@ class StrategyConfig:
     donate: bool = True
     packer: str = "slice"
     transport: str = "loopback"
-    coalesce: bool = True
+    coalesce: bool | str = True
     mapping: str = "row-major"
     epoch: int | None = None
 
@@ -76,9 +87,10 @@ class StrategyConfig:
             raise ValueError(f"n_parts must be >= 1, got {self.n_parts}")
         if isinstance(self.plan_cache, str) and self.plan_cache not in ("private", "shared"):
             raise ValueError(f"plan_cache {self.plan_cache!r}")
-        if not isinstance(self.coalesce, bool):
-            raise TypeError(f"coalesce must be a bool, got {self.coalesce!r}")
-        get_packer(self.packer)
+        if not (isinstance(self.coalesce, bool) or self.coalesce == AUTO):
+            raise TypeError(f"coalesce must be a bool or {AUTO!r}, got {self.coalesce!r}")
+        if self.packer != AUTO:
+            get_packer(self.packer)
         get_transport(self.transport)
         object.__setattr__(self, "mapping", canonical_mapping(self.mapping))
 
@@ -304,9 +316,12 @@ def make_driver(
     update_fn: UpdateFn | None = None,
     **config_kw,
 ) -> ExchangeStrategy:
-    """Name-or-config in, driver out; it runs on ``mesh.device``."""
+    """Name-or-config in, driver out; it runs on ``mesh.device``.  Any
+    ``auto`` axis (name, packer or coalesce) routes to :class:`AutoStrategy`."""
     config = strategy if isinstance(strategy, StrategyConfig) else StrategyConfig(
         name=strategy, **config_kw)
+    if AUTO in (config.name, config.packer, config.coalesce):
+        return AutoStrategy(mesh, spec_builder, ndim, config=config, update_fn=update_fn)
     cls = get_strategy(config.name)
     return cls(mesh, spec_builder, ndim, config=config, update_fn=update_fn)
 
@@ -422,3 +437,203 @@ class OverlapStrategy(PersistentStrategy):
         spec = self.build_spec()
         return _OverlapStep(self._prepare(example), self.mesh.size, self.update_fn,
                             example, spec.array_axes, spec.halo)
+
+
+# ---------------------------------------------------------------------------
+# autotuned selection (not registered: "auto" is a selector, not a schedule)
+# ---------------------------------------------------------------------------
+
+
+class AutoStrategy(ExchangeStrategy):
+    """Resolve every ``auto`` config axis at plan-build time, then delegate.
+
+    On the first ``init``/``step`` the driver enumerates the candidate
+    ``(strategy, packer, coalesce, n_parts)`` grid (a pinned axis stays
+    pinned), computes each candidate's static features (``wire_bytes``,
+    collective count, intra/inter-node sends under the mesh's placement)
+    and asks :func:`repro_torch.core.autotune.default_tuner` to pick: by
+    recorded trace, by fitted cost model, or by timed probes.  The probes
+    run on a copy of the example, their barrier is the driver's ``wait``,
+    and probe drivers and the resolved driver share ONE plan cache, so the
+    winner's plan is a cache hit.
+
+    After resolution the driver IS the chosen one: ``strategy``/``config``
+    report the concrete cell, and ``selected_by``/``predicted_us``/
+    ``calibration_us`` carry the provenance that
+    :func:`repro_torch.stencil.comb.run_cycles` stamps into records.
+    ``selected_by`` also enters :class:`~repro_torch.core.halo.HaloSpec`
+    and so every plan key.
+    """
+
+    name = AUTO
+    amortizes_init = True  # resolution + the inner init are the setup cost
+
+    def __init__(self, mesh, spec_builder, ndim, *, config=None, update_fn=None):
+        config = config or StrategyConfig(name=AUTO, packer=AUTO, coalesce=AUTO)
+        super().__init__(mesh, spec_builder, ndim, config=config, update_fn=update_fn)
+        # the base ctor stamps name="auto"; restore the caller's strategy pin
+        self.config = config
+        self._inner: ExchangeStrategy | None = None
+        self._owned_cache: PlanCache | None = None
+        #: selection provenance, set at resolution
+        self.selected_by: str | None = None
+        self.predicted_us: float | None = None
+        self.calibration_us: float = 0.0
+
+    # -- identity: the sentinel before resolution, the winner after --------
+    @property
+    def strategy(self) -> str:
+        return self._inner.strategy if self._inner is not None else AUTO
+
+    @property
+    def n_parts(self) -> int:
+        return self._inner.n_parts if self._inner is not None else 1
+
+    # -- candidate grid -----------------------------------------------------
+    def _probe_plan_cache(self) -> str | PlanCache:
+        """A "private" request becomes a driver-owned cache shared by the
+        probes and the resolved driver (freed with this driver)."""
+        if self.config.plan_cache == "private":
+            if self._owned_cache is None:
+                self._owned_cache = PlanCache()
+            return self._owned_cache
+        return self.config.plan_cache
+
+    def _candidate_config(self, cand) -> StrategyConfig:
+        return self.config.with_(
+            name=cand.strategy, packer=cand.packer, coalesce=cand.coalesce,
+            n_parts=cand.n_parts, plan_cache=self._probe_plan_cache(),
+        )
+
+    def _candidates(self, dtype):
+        def pin(v):
+            return None if v == AUTO else (v,)
+
+        return autotune.default_candidates(
+            dtype=dtype,
+            strategies=pin(self.config.name),
+            packers=pin(self.config.packer),
+            coalesce_modes=(None if self.config.coalesce == AUTO
+                            else (bool(self.config.coalesce),)),
+            part_counts=(autotune.DEFAULT_PART_COUNTS if self.config.n_parts == 1
+                         else (self.config.n_parts,)),
+        )
+
+    # -- resolution ---------------------------------------------------------
+    def _probe(self, cand, example: torch.Tensor) -> float:
+        """One timed calibration run of a candidate (init, warmup, barrier,
+        timed cycles) on a copy of the example, through a spec stamped
+        ``selected_by="calibration"``, the stamp the resolved driver uses,
+        so the winner's plan key matches and its plan is reused."""
+        drv = make_driver(
+            self._candidate_config(cand), self.mesh,
+            lambda: self._spec_builder().with_(selected_by="calibration"),
+            self.ndim, update_fn=self.update_fn,
+        )
+        x = example.clone()
+        try:
+            drv.init(x)
+            for _ in range(autotune.PROBE_WARMUP):
+                x = drv.step(x)
+            drv.wait(x)
+            t0 = time.perf_counter()
+            for _ in range(autotune.PROBE_CYCLES):
+                x = drv.step(x)
+            drv.wait(x)
+            return (time.perf_counter() - t0) / autotune.PROBE_CYCLES * 1e6
+        finally:
+            drv.free()  # the shared probe cache keeps the plan initialized
+
+    def _resolve(self, example: torch.Tensor) -> None:
+        if self._inner is not None:
+            return
+        geo = self._spec_builder()  # geometry only: axes, halo, topology
+        candidates = self._candidates(example.dtype)
+        axis_names = self.mesh.axis_names
+        node_size = default_node_size(self.mesh.size)
+        node_of = mesh_node_ids(self.mesh, node_size)
+        block = self._local_block_shape(tuple(example.shape))
+        # the JAX package's stored global shape: blocks side by side
+        stored = list(block)
+        for name, a in zip(geo.mesh_axes, geo.array_axes):
+            stored[a] *= self.mesh.shape[name]
+        face_elems = autotune.max_face_elems(block, geo.array_axes, geo.halo)
+        cell = {
+            "mesh_shape": self.mesh.axis_sizes,
+            "shape": tuple(stored),
+            "dtype": str(example.dtype).removeprefix("torch."),
+            "halo": geo.halo,
+            "mapping": self.config.mapping,
+            "transport": self.config.transport,
+            "node_size": node_size,
+            "message_bytes": face_elems * example.element_size(),
+            "device": device_name(self.mesh.device),
+        }
+        # message tables depend only on (strategy, n_parts): packer and
+        # coalesce reuse them
+        groups_cache: dict[tuple[str, int], tuple] = {}
+        features = {}
+        for cand in candidates:
+            gkey = (cand.strategy, cand.n_parts)
+            if gkey not in groups_cache:
+                drv = make_driver(self._candidate_config(cand), self.mesh,
+                                  self._spec_builder, self.ndim, update_fn=self.update_fn)
+                groups_cache[gkey] = drv._message_groups(block, drv.build_spec())
+            groups = groups_cache[gkey]
+            loc = schedule_locality(groups, axis_order=axis_names,
+                                    axis_sizes=self.mesh.shape, node_of=node_of)
+            features[cand] = autotune.CellFeatures(
+                wire_bytes=face_elems * get_packer(cand.packer).wire_itemsize(example.dtype),
+                collective_count=scheduled_collective_count(groups, coalesce=cand.coalesce),
+                intra_sends=loc.intra_sends,
+                inter_sends=loc.inter_sends,
+            )
+        verdict = autotune.default_tuner().choose_or_calibrate(
+            candidates, features, cell, probe=lambda cand: self._probe(cand, example),
+        )
+        self.selected_by = verdict.selected_by
+        self.predicted_us = verdict.predicted_us
+        self.calibration_us = verdict.calibration_us
+        stamp = verdict.plan_stamp()
+        self._inner = make_driver(
+            self._candidate_config(verdict.candidate), self.mesh,
+            lambda: self._spec_builder().with_(selected_by=stamp),
+            self.ndim, update_fn=self.update_fn,
+        )
+        # the resolved driver's config (overlap's donate=False included)
+        # becomes this driver's visible identity
+        self.config = self._inner.config
+
+    # -- lifecycle: resolve, then delegate ----------------------------------
+    def init(self, example: torch.Tensor) -> None:
+        self._resolve(example)
+        self._inner.init(example)
+
+    def step(self, x: torch.Tensor) -> torch.Tensor:
+        if self._inner is None:
+            self._resolve(x)
+        return self._inner.step(x)
+
+    def free(self) -> None:
+        if self._inner is not None:
+            self._inner.free()
+        if self._owned_cache is not None:
+            self._owned_cache.free_all()
+
+    def build_spec(self) -> HaloSpec:
+        if self._inner is None:
+            raise RuntimeError("auto strategy has no spec before resolution; "
+                               "call init(example) first")
+        return self._inner.build_spec()
+
+    def scheduled_collectives(self, example: torch.Tensor) -> int:
+        self._resolve(example)
+        return self._inner.scheduled_collectives(example)
+
+    def replan_tables(self, example) -> tuple[tuple, tuple]:
+        self._resolve(example)
+        return self._inner.replan_tables(example)
+
+    def wire_layouts(self, example: torch.Tensor) -> tuple:
+        self._resolve(example)
+        return self._inner.wire_layouts(example)

@@ -6,13 +6,15 @@
   within the packer's ``wire_tolerance`` for the lossy ones.  Partition
   counts include ones that do not divide the face and ones beyond it.
 * A few cells run end to end through JAX ``make_driver`` on the 8 virtual
-  devices; their stored outputs equal the port's bitwise (the lossy wires
-  too: both round to nearest even the same way).
+  devices, periodic and not, with f32 and bf16 blocks; their stored
+  outputs equal the port's bitwise (the lossy wires too: both round to
+  nearest even the same way).
 * Heat3d on the ``(4, 2)`` mesh at a small size: the port's
   ``comb_measure`` against the JAX one, and the port's cycles against the
   periodic numpy oracle.  Tolerance ``rtol=atol=2e-4`` on the interior, as
   ``examples/stencil_heat3d.py`` holds the JAX package (summation order
-  differs), and ``1e-5`` on the checksums.
+  differs), and ``1e-5`` on the checksums.  ``comb_measure`` refuses an
+  exact-packer cell whose last block is one ulp off the first cell's.
 """
 
 import jax
@@ -54,15 +56,15 @@ MESHES = {
 }
 
 
-def _port_domain(key):
+def _port_domain(key, dtype="float32"):
     shape, names, gi, axes, halo = MESHES[key]
-    return Domain(make_mesh(shape, names, device="cpu"), gi, axes, halo=halo)
+    return Domain(make_mesh(shape, names, device="cpu"), gi, axes, halo=halo, dtype=dtype)
 
 
-def _jax_domain(key):
+def _jax_domain(key, dtype="float32"):
     shape, names, gi, axes, halo = MESHES[key]
     mesh = j_make_mesh(shape, names, devices=jax.devices()[: int(np.prod(shape))])
-    return JDomain(mesh, gi, axes, halo=halo)
+    return JDomain(mesh, gi, axes, halo=halo, dtype=dtype)
 
 
 def _interior(domain, seed=0):
@@ -112,20 +114,39 @@ def test_every_registered_strategy_and_packer_is_covered():
     assert set(available_packers()) == {"slice", "cuda", "bf16", "scaled-int8"}
 
 
-#: (mesh, strategy, JAX packer, port packer, coalesce, n_parts, periodic)
+#: (mesh, strategy, JAX packer, port packer, coalesce, n_parts, periodic,
+#: block dtype): every strategy non-periodic, and bf16 blocks through exact
+#: and lossy wires, as the sweep drives them
 DRIVER_CELLS = [
-    ("2d", "partitioned", "pallas", "cuda", True, 3, True),
-    ("3d", "fused", "pallas", "cuda", False, 1, True),
-    ("2d", "persistent", "bf16", "bf16", True, 1, True),
-    ("3d", "partitioned", "scaled-int8", "scaled-int8", False, 4, True),
-    ("1d", "standard", "slice", "slice", True, 1, False),
-    ("2d", "fused", "pallas", "cuda", True, 1, False),
+    ("2d", "partitioned", "pallas", "cuda", True, 3, True, "float32"),
+    ("3d", "fused", "pallas", "cuda", False, 1, True, "float32"),
+    ("2d", "persistent", "bf16", "bf16", True, 1, True, "float32"),
+    ("3d", "partitioned", "scaled-int8", "scaled-int8", False, 4, True, "float32"),
+    ("1d", "standard", "slice", "slice", True, 1, False, "float32"),
+    ("2d", "fused", "pallas", "cuda", True, 1, False, "float32"),
+    ("2d", "standard", "pallas", "cuda", False, 1, False, "float32"),
+    ("3d", "persistent", "slice", "slice", True, 1, False, "float32"),
+    ("3d", "partitioned", "pallas", "cuda", True, 3, False, "float32"),
+    ("2d", "overlap", "bf16", "bf16", False, 1, False, "float32"),
+    ("2d", "persistent", "pallas", "cuda", True, 1, True, "bfloat16"),
+    ("3d", "fused", "slice", "slice", False, 1, False, "bfloat16"),
+    ("2d", "partitioned", "bf16", "bf16", False, 3, True, "bfloat16"),
+    ("1d", "overlap", "scaled-int8", "scaled-int8", True, 1, True, "bfloat16"),
 ]
 
 
-@pytest.mark.parametrize("mesh,strategy,jp,tp,coalesce,n_parts,periodic", DRIVER_CELLS)
-def test_port_equals_jax_driver_bitwise(mesh, strategy, jp, tp, coalesce, n_parts, periodic):
-    d, jd = _port_domain(mesh), _jax_domain(mesh)
+def _cell_id(cell):
+    """The cell's values joined; f32 cells keep their ids from before the
+    dtype column."""
+    *head, dtype = cell
+    return "-".join(map(str, head)) + ("" if dtype == "float32" else f"-{dtype}")
+
+
+@pytest.mark.parametrize("mesh,strategy,jp,tp,coalesce,n_parts,periodic,dtype", DRIVER_CELLS,
+                         ids=[_cell_id(c) for c in DRIVER_CELLS])
+def test_port_equals_jax_driver_bitwise(mesh, strategy, jp, tp, coalesce, n_parts, periodic,
+                                        dtype):
+    d, jd = _port_domain(mesh, dtype), _jax_domain(mesh, dtype)
     interior = _interior(d, seed=7)
     jdrv = j_make_driver(JConfig(name=strategy, n_parts=n_parts, packer=jp, coalesce=coalesce),
                          jd.mesh, lambda: jd.halo_spec().with_(periodic=periodic),
@@ -181,7 +202,7 @@ def test_heat3d_comb_measure_matches_jax_and_oracle(monkeypatch):
     jmesh = j_make_mesh(HEAT[0], HEAT[1])
     jd = JDomain(jmesh, HEAT[2], ("pz", "py", None))
     d = Domain(make_mesh(HEAT[0], HEAT[1], device="cpu"), HEAT[2], ("pz", "py", None))
-    # the port draws its random state on the device; hand it the JAX draw
+    # the port draws its own state from torch generators; hand it the JAX draw
     monkeypatch.setattr(Domain, "random", lambda self, seed=0: self.from_global_interior(
         np.random.default_rng(seed).normal(size=self.global_interior).astype(np.float32)))
     strategies = ("standard", "persistent", "partitioned", "fused", "overlap")
@@ -208,6 +229,35 @@ def test_heat3d_comb_measure_matches_jax_and_oracle(monkeypatch):
             x = drv.step(x)
         np.testing.assert_allclose(d.to_global_interior(drv.wait(x)), want,
                                    rtol=2e-4, atol=2e-4, err_msg=s)
+
+
+@pytest.mark.parametrize("packer,raises", [("cuda", True), ("bf16", False)])
+def test_comb_measure_holds_exact_cells_bitwise(monkeypatch, packer, raises):
+    """One ulp off in one element of a cell's last block moves the checksum
+    far less than its tolerance; ``comb_measure`` still refuses it for an
+    exact packer, and leaves a lossy packer to the checksum check."""
+    from repro_torch.stencil import comb
+
+    d = Domain(make_mesh(HEAT[0], HEAT[1], device="cpu"), HEAT[2], ("pz", "py", None))
+    real = comb.run_cycles
+
+    def off_by_one_ulp(driver, x, **kw):
+        res, final = real(driver, x, **kw)
+        if driver.config.packer == packer:
+            final = final.clone()
+            flat = final.view(-1)
+            flat[7] = torch.nextafter(flat[7], torch.tensor(float("inf")))
+        return res, final
+
+    monkeypatch.setattr(comb, "run_cycles", off_by_one_ulp)
+    strategies = (StrategyConfig(name="standard", packer="slice"),
+                  StrategyConfig(name="persistent", packer="cuda"),
+                  StrategyConfig(name="persistent", packer="bf16"))
+    if raises:
+        with pytest.raises(AssertionError, match="persistent@cuda's block differs from standard"):
+            comb_measure(d, strategies=strategies, n_cycles=1, repeats=1)
+    else:
+        assert len(comb_measure(d, strategies=strategies, n_cycles=1, repeats=1)) == 3
 
 
 def test_exchange_driver_facade_and_deliver():

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone and never runs on the CPU unasked.
 
-* No module of ``src/repro_torch/`` and no line of ``chip_smoke.py`` imports
-  ``jax`` or anything of the JAX package ``repro`` (checked on the syntax
-  tree, so an import inside a function counts too).
+* No module of ``src/repro_torch/``, no line of ``chip_smoke.py`` and none
+  of the port's example imports ``jax`` or anything of the JAX package
+  ``repro`` (checked on the syntax tree, so an import inside a function
+  counts too).
 * Entry points take the card by default: without CUDA they raise instead of
   running on the CPU, and the CUDA kernel wrappers refuse CPU tensors.
 """
@@ -16,7 +17,8 @@ import torch
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "examples" / "stencil_heat3d_torch.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -42,7 +44,10 @@ def test_port_has_modules_and_smoke_script():
                      "src/repro_torch/kernels/flash_attention/ref.py",
                      "src/repro_torch/models/layers.py", "src/repro_torch/models/transformer.py",
                      "src/repro_torch/models/api.py", "src/repro_torch/models/convert.py",
-                     "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py"):
+                     "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py",
+                     "src/repro_torch/launch/mapping.py", "src/repro_torch/core/autotune.py",
+                     "src/repro_torch/stencil/sweep.py",
+                     "examples/stencil_heat3d_torch.py"):
         assert required in names
 
 

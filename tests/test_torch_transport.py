@@ -115,8 +115,9 @@ def test_partitioner_and_non_dividing_partitions_equal_jax():
 def test_schedule_info_tag_matches_jax_format():
     kw = dict(kind="fused", mesh_axes=("pz", "py"), packer="bf16", coalesce=True,
               mapping="blocked", epoch=3)
-    assert (t_tr.ScheduleInfo(transport="loopback", **kw).tag()
-            == j_tr.ScheduleInfo(transport="loopback", **kw).tag())
+    for selected_by in (None, "trace", "calibration"):
+        assert (t_tr.ScheduleInfo(transport="loopback", selected_by=selected_by, **kw).tag()
+                == j_tr.ScheduleInfo(transport="loopback", selected_by=selected_by, **kw).tag())
 
 
 def test_halo_spec_validates_like_jax():
