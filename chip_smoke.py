@@ -28,12 +28,17 @@ prints no result.  Every phase that fails ends the run with a non-zero exit.
    against the port's ``reference_exchange`` on the card (bitwise for the
    exact packers, within ``wire_tolerance`` for the lossy ones).
 4. Heat3d through ``comb_measure`` (the main path): all five strategies,
-   packer ``cuda``, coalesced, the ``stencil27`` kernel update.  Launch
-   counts are zeroed just before and read just after; each kernel must have
-   launched.  The cycles are checked against the same cycles run through
-   packer ``slice`` with ``stencil27_ref`` on the card, and ``torch.profiler``
-   shows where each strategy's cycle goes (device time by kernel, idle share,
-   the ``direct_copy`` launches left: the stencil writes the interior itself).
+   packer ``cuda``, coalesced, the ``stencil27`` kernel update; every
+   strategy but ``standard`` replays the CUDA graph its plan captured at
+   init.  Launch counts (replays included) are zeroed just before and read
+   just after; each kernel must have launched.  The cycles are checked
+   against the same cycles run through packer ``slice`` with
+   ``stencil27_ref`` on the card, and each graph strategy's cycles bitwise
+   against its plan's eager step (``plan.fn``); eager and graph are timed
+   in turns (``tools/time_plan_graph.py``'s helpers: 20-cycle windows, host
+   clock), and ``torch.profiler`` shows where each one's cycle goes (device
+   time by kernel, idle share, the ``direct_copy`` launches left: the
+   stencil writes the interior itself).
 A. ``flash_attention`` against its plain version on the card at the shapes
    the serving path gives it (llama3-8b prefill, causal, bf16, S in
    {8, 128, 1000, 2048}; an MHA head_dim-64 case causal and not; an f32
@@ -53,9 +58,12 @@ B. Serving llama3-8b at full width and depth (random bf16 weights from
    per prefill, and the engine must init one plan per prefill bucket plus
    one decode plan.  The tokens are held against the same engine with the
    plain attention injected: equal, or, where they first differ, a near
-   tie in the plain model's logits.  Prints prefill ms per bucket, decode
-   ms per step, tokens per second, and the device idle share of a prefill
-   and of a decode step (``torch.profiler``).
+   tie in the plain model's logits.  The decode plan alone captures a CUDA
+   graph (prefill stays eager); the same requests with the decode step
+   eager must give equal tokens.  Prints prefill ms per bucket, decode ms
+   per step eager (``plan.fn``) and graph (``plan.start``) in turns,
+   tokens per second, and the device idle share of a prefill and of an
+   eager and a graph decode step (``torch.profiler``).
 C. ``wkv_chunked`` against its plain version ``wkv_plain`` on the card at
    the shapes the rwkv6-1.6b serving path gives it, H = 32 heads of 64:
    f32 prefill with batch 1 and T in {5, 17, 37, 64, 128, 2048} (chunk
@@ -81,8 +89,11 @@ D. Serving rwkv6-1.6b at full width and depth (random bf16 weights from
    8 prompts of 5, 12, 64, 128, 512, 1024, 1536 and 2048 tokens (lengths
    the reference's scan accepts), 16 new tokens each.  Launch counts are
    zeroed just before and read just after: ``wkv_chunked`` must launch 24
-   times per prefill and 24 times per decode step, and the engine must init
-   one plan per prompt length (exact-length prefill) plus one decode plan.
+   times per prefill and 24 times per decode step (graph replays), and 24
+   times for the decode plan's eager warm-up at init, and the engine must
+   init one plan per prompt length (exact-length prefill) plus one decode
+   plan, the one plan that captures; the same requests with the decode
+   step eager must give equal tokens.
    The kernel is held against ``wkv_plain`` on the path's own inputs: every
    layer's scan of each prompt's prefill and of a decode step (3e-4).  The
    tokens are compared with the same engine with ``wkv_plain`` injected,
@@ -91,8 +102,9 @@ D. Serving rwkv6-1.6b at full width and depth (random bf16 weights from
    several tenths, larger than the gaps between its top tokens), and with
    the same weights in f32, held: equal, or a near tie at the first
    difference (1e-4 x (1 + |logit|)), and the prefill token must agree.
-   Prints prefill ms per length, decode ms per step, tokens per second, and
-   the device idle share of the 2048-token prefill and of a decode step.
+   Prints prefill ms per length, decode ms per step eager and graph in
+   turns, tokens per second, and the device idle share of the 2048-token
+   prefill and of an eager and a graph decode step.
 E. The paper's §VI sweep on the card (``repro_torch.stencil.sweep``):
    (1) the smoke grid (4 ranks on a (2, 2) torus, all five strategies, all
    four packers, coalesce on and off, mappings row-major and blocked) on
@@ -105,7 +117,8 @@ E. The paper's §VI sweep on the card (``repro_torch.stencil.sweep``):
    256^3 and (1024, 1024, 512) f32 with halo 1 (largest face messages of
    8.7 KB, 133 KB and 1.05 MB at 8 ranks), all five strategies, packers
    ``slice`` and ``cuda``, coalesce off and on, ``n_parts`` 1, 2 and 4,
-   200 cycles x 3 repeats.  Launch counts are zeroed just before each
+   200 cycles x 3 repeats, every plan strategy on its CUDA graph.  Launch
+   counts are zeroed just before each
    cell's run and read just after (``run_cycles`` wrapped): every ``cuda``
    cell must launch ``copy_convert``, every coalesced one ``gather_pack``
    too, and a ``slice`` cell neither; every cell's last block must equal
@@ -185,6 +198,8 @@ SWEEP_COUNTS = (4, 8)
 #: was about half their time)
 SWEEP_CYCLES, SWEEP_REPEATS = 200, 3
 AUTO_CYCLES = 3
+#: decode steps a timing window (phases B and D, eager and graph in turns)
+DECODE_STEPS = 20
 
 
 def fail(msg: str) -> None:
@@ -314,6 +329,7 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
     from repro_torch.kernels.flash_attention import attention_plain
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingEngine
+    from time_plan_graph import decode_row, eager_decode_engine
 
     cfg = get_config("llama3-8b")
     model = build_model(cfg, dev)
@@ -333,8 +349,8 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
                   model.init_cache(1, 8))
     torch.cuda.synchronize()
 
-    def serve(m):
-        engine = ServingEngine(m, params, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    def serve(m, engine_cls=ServingEngine):
+        engine = engine_cls(m, params, max_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
         uids = [engine.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
         t0 = time.perf_counter()
         out = engine.run()
@@ -358,7 +374,19 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
              f"{st.prefills} prefills of {cfg.n_layers} layers")
     if st.plan_inits != len(buckets) + 1:
         fail(f"{st.plan_inits} plan inits for {len(buckets)} prefill buckets + 1 decode plan")
+    captured = [p.name for p in engine.plans._plans.values() if p.captured]
+    if captured != ["decode_fn"]:
+        fail(f"captured plans {captured}: the decode plan alone replays a CUDA graph")
     kernels["flash_attention"]["launches"] = launches["flash_attention"]
+
+    # the same requests with the decode step eager: equal tokens
+    _, eager_tokens, eager_s = serve(model, eager_decode_engine())
+    if eager_tokens != tokens:
+        fail(f"graph decode tokens differ from eager ones: {tokens} vs {eager_tokens}")
+    print(f"tokens of the graph decode ({serve_s:.3f} s) equal the eager decode's "
+          f"({eager_s:.3f} s) for all {len(prompts)} requests", flush=True)
+    _build.LAUNCHES.clear()
+    _build.LAUNCHES.update(launches)
 
     plain_model = build_model(cfg, dev, attention=attention_plain)
     _, plain_tokens, plain_s = serve(plain_model)
@@ -397,21 +425,27 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
         prefill_logit_err[bucket] = (got - want).abs().max().item()
     print(f"prefill ms by bucket {json.dumps(prefill_ms)}; max |logit kernel - plain| "
           f"{json.dumps(prefill_logit_err)}", flush=True)
-    cache = engine._cache
-    step_tok = torch.zeros((SERVE_SLOTS, 1), dtype=torch.long, device=dev)
-    decode_ms = host_ms(torch, lambda: model.decode_step(params, step_tok, cache), reps=7)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, SERVE_MAX_LEN)), device=dev)
     prefill_trace = device_breakdown(lambda: model.prefill(
         params, {"tokens": toks}, cache1, true_len=true_len), n_cycles=1)
-    decode_trace = device_breakdown(lambda: model.decode_step(params, step_tok, cache),
-                                    n_cycles=3)
+    # the decode plan eager (plan.fn) and replayed (plan.start), in turns
+    decode_timing = decode_row(torch, engine, n=DECODE_STEPS, rounds=2)
+    decode_ms = decode_timing["eager"]["us"] / 1e3
+    decode_trace = decode_timing["eager"].pop("breakdown")
+    graph_trace = decode_timing["graph"].pop("breakdown")
     # host cost of one eager op on the card (a small in-place add)
     scratch = torch.zeros(1024, device=dev)
     op_us = host_ms(torch, lambda: [scratch.add_(1.0) for _ in range(500)]) / 500 * 1e3
     decode_launches = sum(k["launches_per_cycle"] for k in decode_trace["kernels"])
-    print(f"decode step: {decode_ms:.2f} ms, {decode_launches:g} device activities per step; "
-          f"one eager op costs {op_us:.1f} us of host time", flush=True)
-    for label, b in (("prefill 2048", prefill_trace), ("decode step", decode_trace)):
+    print(f"decode step: eager {decode_ms:.2f} ms (idle {decode_trace['idle_share']:.3f}, by host "
+          f"clock {decode_timing['eager']['idle_share_host']:.3f}), graph "
+          f"{decode_timing['graph']['us'] / 1e3:.2f} ms (idle {graph_trace['idle_share']:.3f}, by "
+          f"host clock {decode_timing['graph']['idle_share_host']:.3f}), "
+          f"{decode_launches:g} device activities per eager step; decode plan init with the "
+          f"capture {decode_timing['init_us'] / 1e3:.1f} ms; one eager op costs {op_us:.1f} us "
+          f"of host time", flush=True)
+    for label, b in (("prefill 2048", prefill_trace), ("decode step eager", decode_trace),
+                     ("decode step graph", graph_trace)):
         top = ", ".join(f"{short_kernel_name(k['name'])} x{k['launches_per_cycle']:g} "
                         f"{k['us_per_cycle']:.0f}us" for k in b["kernels"][:5])
         print(f"{label} breakdown: window {b['window_us_per_cycle']:.0f} us, device busy "
@@ -423,11 +457,13 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
         buckets=buckets, prefills=st.prefills, decode_steps=st.decode_steps,
         plan_inits=st.plan_inits, plan_hits=st.plan_hits, launches=launches,
         tokens=n_tokens, serve_s=serve_s, tokens_per_s=n_tokens / serve_s,
-        plain_serve_s=plain_s, equal_requests=equal, near_ties=ties,
+        plain_serve_s=plain_s, equal_requests=equal, near_ties=ties, eager_decode_serve_s=eager_s,
         prefill_ms=prefill_ms, prefill_logit_err=prefill_logit_err, decode_ms=decode_ms,
+        decode_graph_ms=decode_timing["graph"]["us"] / 1e3, decode_timing=decode_timing,
         decode_device_activities=decode_launches, host_us_per_op=op_us,
         prefill_idle_share=prefill_trace["idle_share"], decode_idle_share=decode_trace["idle_share"],
-        prefill_trace=prefill_trace, decode_trace=decode_trace,
+        decode_graph_idle_share=graph_trace["idle_share"],
+        prefill_trace=prefill_trace, decode_trace=decode_trace, decode_graph_trace=graph_trace,
     )
     print("serving:", json.dumps({k: v for k, v in out.items() if not k.endswith("_trace")}),
           flush=True)
@@ -638,6 +674,7 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
     from repro_torch.kernels.wkv import wkv_chunked, wkv_plain
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingEngine
+    from time_plan_graph import decode_row, eager_decode_engine
 
     cfg = get_config("rwkv6-1.6b")
     model = build_model(cfg, dev)
@@ -662,8 +699,8 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
                   model.init_cache(1, 8))
     torch.cuda.synchronize()
 
-    def serve(m, weights=params):
-        engine = ServingEngine(m, weights, max_slots=RWKV_SLOTS, max_len=RWKV_MAX_LEN)
+    def serve(m, weights=params, engine_cls=ServingEngine):
+        engine = engine_cls(m, weights, max_slots=RWKV_SLOTS, max_len=RWKV_MAX_LEN)
         uids = [engine.submit(p, max_new_tokens=RWKV_NEW) for p in prompts]
         t0 = time.perf_counter()
         out = engine.run()
@@ -681,14 +718,32 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
           f"launches {json.dumps(launches)}", flush=True)
     if st.prefills != len(prompts) or any(len(t) != RWKV_NEW for t in tokens):
         fail(f"served {st.prefills} prefills, token counts {[len(t) for t in tokens]}")
-    want_launches = cfg.n_layers * (st.prefills + st.decode_steps)
+    # a layer's scan per prefill and per decode step (replays included),
+    # and per layer once more: the decode plan's eager warm-up at init
+    want_launches = cfg.n_layers * (st.prefills + st.decode_steps + 1)
     if launches.get("wkv_chunked", 0) != want_launches:
         fail(f"wkv_chunked launched {launches.get('wkv_chunked', 0)} times for {st.prefills} "
-             f"prefills and {st.decode_steps} decode steps of {cfg.n_layers} layers "
-             f"(want {want_launches})")
+             f"prefills, {st.decode_steps} decode steps and the decode plan's warm-up of "
+             f"{cfg.n_layers} layers (want {want_launches})")
     if st.plan_inits != len(set(RWKV_LENGTHS)) + 1:
         fail(f"{st.plan_inits} plan inits for {len(set(RWKV_LENGTHS))} prompt lengths + 1 decode plan")
+    captured = [p.name for p in engine.plans._plans.values() if p.captured]
+    if captured != ["decode_fn"]:
+        fail(f"captured plans {captured}: the decode plan alone replays a CUDA graph")
     kernels["wkv_chunked"]["launches"] = launches["wkv_chunked"]
+
+    # the same requests with the decode step eager: equal tokens
+    _build.reset_launches()
+    _, eager_tokens, eager_s = serve(model, engine_cls=eager_decode_engine())
+    eager_launches = _build.LAUNCHES["wkv_chunked"]
+    if eager_tokens != tokens:
+        fail(f"graph decode tokens differ from eager ones: {tokens} vs {eager_tokens}")
+    if eager_launches != cfg.n_layers * (st.prefills + st.decode_steps):
+        fail(f"the eager-decode run launched wkv_chunked {eager_launches} times")
+    print(f"tokens of the graph decode ({serve_s:.3f} s) equal the eager decode's "
+          f"({eager_s:.3f} s) for all {len(prompts)} requests", flush=True)
+    _build.LAUNCHES.clear()
+    _build.LAUNCHES.update(launches)
 
     plain_model = build_model(cfg, dev, wkv=wkv_plain)
     _, plain_tokens, plain_s = serve(plain_model)
@@ -765,19 +820,24 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
         cache1 = model.init_cache(1, RWKV_MAX_LEN)
         prefill_ms[n] = host_ms(torch, lambda: model.prefill(params, {"tokens": toks}, cache1))
     print(f"prefill ms by length {json.dumps(prefill_ms)}", flush=True)
-    cache = engine._cache
-    step_tok = torch.zeros((RWKV_SLOTS, 1), dtype=torch.long, device=dev)
-    decode_ms = host_ms(torch, lambda: model.decode_step(params, step_tok, cache), reps=7)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 2048)), device=dev)
     cache1 = model.init_cache(1, RWKV_MAX_LEN)
     prefill_trace = device_breakdown(lambda: model.prefill(params, {"tokens": toks}, cache1),
                                      n_cycles=1)
-    decode_trace = device_breakdown(lambda: model.decode_step(params, step_tok, cache),
-                                    n_cycles=3)
+    # the decode plan eager (plan.fn) and replayed (plan.start), in turns
+    decode_timing = decode_row(torch, engine, n=DECODE_STEPS, rounds=2)
+    decode_ms = decode_timing["eager"]["us"] / 1e3
+    decode_trace = decode_timing["eager"].pop("breakdown")
+    graph_trace = decode_timing["graph"].pop("breakdown")
     decode_launches = sum(k["launches_per_cycle"] for k in decode_trace["kernels"])
-    print(f"decode step: {decode_ms:.2f} ms, {decode_launches:g} device activities per step",
-          flush=True)
-    for label, b in (("prefill 2048", prefill_trace), ("decode step", decode_trace)):
+    print(f"decode step: eager {decode_ms:.2f} ms (idle {decode_trace['idle_share']:.3f}, by host "
+          f"clock {decode_timing['eager']['idle_share_host']:.3f}), graph "
+          f"{decode_timing['graph']['us'] / 1e3:.2f} ms (idle {graph_trace['idle_share']:.3f}, by "
+          f"host clock {decode_timing['graph']['idle_share_host']:.3f}), "
+          f"{decode_launches:g} device activities per eager step; decode plan init with the "
+          f"capture {decode_timing['init_us'] / 1e3:.1f} ms", flush=True)
+    for label, b in (("prefill 2048", prefill_trace), ("decode step eager", decode_trace),
+                     ("decode step graph", graph_trace)):
         top = ", ".join(f"{short_kernel_name(k['name'])} x{k['launches_per_cycle']:g} "
                         f"{k['us_per_cycle']:.0f}us" for k in b["kernels"][:6])
         print(f"rwkv {label} breakdown: window {b['window_us_per_cycle']:.0f} us, device busy "
@@ -791,10 +851,12 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
         tokens_per_s=n_tokens / serve_s, plain_serve_s=plain_s, equal_requests_bf16=equal,
         first_differences_bf16=ties, prefill_logits_bf16=prefill_gap, path_check=path_err,
         equal_requests_f32=equal32, near_ties_f32=ties32, prefill_logit_err_f32=logit_err32,
-        prefill_ms=prefill_ms,
-        decode_ms=decode_ms, decode_device_activities=decode_launches,
+        prefill_ms=prefill_ms, eager_decode_serve_s=eager_s,
+        decode_ms=decode_ms, decode_graph_ms=decode_timing["graph"]["us"] / 1e3,
+        decode_timing=decode_timing, decode_device_activities=decode_launches,
         prefill_idle_share=prefill_trace["idle_share"], decode_idle_share=decode_trace["idle_share"],
-        prefill_trace=prefill_trace, decode_trace=decode_trace,
+        decode_graph_idle_share=graph_trace["idle_share"],
+        prefill_trace=prefill_trace, decode_trace=decode_trace, decode_graph_trace=graph_trace,
     )
     print("rwkv serving:", json.dumps({k: v for k, v in out.items() if not k.endswith("_trace")}),
           flush=True)
@@ -1041,6 +1103,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT / "tools"))  # the timing helpers the tools share
     import torch.nn.functional as F
+    from time_plan_graph import driver_steps, eager_vs_graph
 
     from repro_torch.core.mesh import make_mesh
     from repro_torch.core.transport import available_packers, get_packer
@@ -1338,7 +1401,9 @@ def main() -> int:
             name=name, packer="cuda", coalesce=True, n_parts=4 if name == "partitioned" else 1),),
             update_fn=update, n_cycles=HEAT_CYCLES, repeats=HEAT_REPEATS, seed=0)
         (label, r), = res.items()
-        cycles = 3 + HEAT_CYCLES * HEAT_REPEATS  # run_cycles' warmup + timed
+        # run_cycles' warmup + timed, and a plan's eager warm-up at init
+        # (one a captured graph: overlap captures one a parity)
+        cycles = 3 + HEAT_CYCLES * HEAT_REPEATS + {"standard": 0, "overlap": 2}.get(name, 1)
         per_cycle[name] = {k: (v - before.get(k, 0)) / cycles for k, v in _build.LAUNCHES.items()}
         results[label] = r
         print(f"heat3d {label}: us_per_cycle={r.us_per_cycle:.1f} init_us={r.init_us:.1f} "
@@ -1365,7 +1430,7 @@ def main() -> int:
     ref_x = plain.wait(ref_x)
     plain.free()
     rtol, atol = STENCIL_TOL["float32"]
-    breakdown = {}
+    breakdown, plan_timing = {}, {}
     for name in strategies:
         drv = make_driver(StrategyConfig(name=name, packer="cuda", n_parts=4 if name == "partitioned" else 1),
                           mesh, dom.halo_spec, ndim=3, update_fn=update)
@@ -1378,8 +1443,35 @@ def main() -> int:
                  f"(max abs err {(y - ref_x).abs().max().item()})")
         print(f"heat3d {name}: {VERIFY_CYCLES} cycles match slice + stencil27_ref "
               f"(max abs err {(y - ref_x).abs().max().item()})", flush=True)
-        # where the cycle's time goes (torch.profiler, 3 traced cycles)
-        b = breakdown[name] = device_breakdown(drv, y)
+        if name == "standard":  # no plan: eager, the baseline's dispatch path
+            b = breakdown[name] = device_breakdown(drv, y)
+        else:
+            # the captured plan's replays against its eager step, bitwise
+            if not drv.plan.captured:
+                fail(f"heat3d {name}: the plan on the card holds no CUDA graph")
+            got = y.clone()  # overlap's eager step writes the plan's buffers
+            e = x2.clone()
+            for _ in range(VERIFY_CYCLES):
+                e = drv.plan.fn(e)
+            torch.cuda.synchronize()
+            if not torch.equal(got, e):
+                fail(f"heat3d {name}: {VERIFY_CYCLES} graph cycles differ from the eager ones "
+                     f"(max abs err {(got - e).abs().max().item()})")
+            del got, e
+            # host time a cycle (20-cycle windows, eager and graph in turns)
+            # and where the cycle's time goes (torch.profiler, 3 cycles each)
+            t = plan_timing[name] = eager_vs_graph(*driver_steps(drv, y), n=HEAT_CYCLES)
+            b = breakdown[name] = t["graph"].pop("breakdown")
+            eb = t["eager"].pop("breakdown")
+            print(f"heat3d {name}: {VERIFY_CYCLES} graph cycles bitwise-equal to plan.fn's; "
+                  f"us_per_cycle eager {t['eager']['us']:.1f} (idle {t['eager']['idle_share']:.3f},"
+                  f" by host clock {t['eager']['idle_share_host']:.3f}, "
+                  f"{eb['busy_us_per_cycle']:.0f} us busy) / graph {t['graph']['us']:.1f} (idle "
+                  f"{t['graph']['idle_share']:.3f}, by host clock "
+                  f"{t['graph']['idle_share_host']:.3f}, {b['busy_us_per_cycle']:.0f} us busy), spread "
+                  f"{t['eager']['spread']:.3f} / {t['graph']['spread']:.3f}; init_us with the "
+                  f"capture {drv.plan.init_seconds * 1e6:.0f}", flush=True)
+            t["init_us"] = drv.plan.init_seconds * 1e6
         drv.free()
         del y
         top = ", ".join(f"{short_kernel_name(k['name'])} x{k['launches_per_cycle']:g} "
@@ -1510,7 +1602,7 @@ def main() -> int:
         kernels=list(kernels.values()),
         heat3d={label: r.record() for label, r in results.items()},
         launches_per_cycle=per_cycle, exchange_cells=cells, breakdown=breakdown,
-        random_s=random_s,
+        heat3d_plan_timing=plan_timing, random_s=random_s,
     )
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

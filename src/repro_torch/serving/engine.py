@@ -5,19 +5,26 @@ Slots hold independent requests; prefill fills a slot's cache region,
 decode advances every active slot one token per step.  Both steps run
 through a :class:`~repro_torch.core.plan.PlanCache` keyed by function
 identity and abstract arguments, as in the JAX engine, so ``plan_inits``
-and ``plan_hits`` count the same things.  A plan here is the prebuilt step
-closure (PyTorch runs eagerly; capturing it as a CUDA graph is ROADMAP 8a).
-When a slot finishes (EOS / max tokens), the next queued request takes it
-over without stalling the running batch (continuous batching).
+and ``plan_hits`` count the same things.  A plan's step closes over the
+weights.  On the card the decode plan captures its step as a CUDA graph at
+the first decode (static inputs: the ``(max_slots, 1)`` tokens and the
+batched cache) and every later step replays it; prefill plans run eagerly
+(one prefill a request, mostly device-busy, and a graph pool a bucket
+would hold a full activation set).  When a slot finishes (EOS / max
+tokens), the next queued request takes it over without stalling the
+running batch (continuous batching).
 
 The decode batch is fixed-size: empty slots decode padding tokens whose
 outputs are ignored.  The engine's cache lives on the model's device and is
-updated in place.
+updated in place: a decode step writes its new state back into the cache
+it was given, so after the first decode the engine holds the decode plan's
+static cache, and a prefill's slot write lands in the graph's inputs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from collections import deque
 from typing import Any
 
@@ -87,7 +94,8 @@ class ServingEngine:
         # function identity, so a fresh closure per call would defeat the
         # cache and init a plan for every request
         def decode_fn(params, token, cache):
-            return model.decode_step(params, token, cache, ctx=ctx)
+            logits, new = model.decode_step(params, token, cache, ctx=ctx)
+            return logits, _carry(cache, new)
 
         def prefill_fn(params, batch, cache):
             return model.prefill(params, batch, cache, ctx=ctx)
@@ -116,9 +124,13 @@ class ServingEngine:
         return finished
 
     # -- internals ------------------------------------------------------------
-    def _plan(self, fn, args):
+    def _plan(self, fn, args, *, example_args=None):
+        """The plan of ``fn`` on ``args`` (weights first); its step closes
+        over the weights, so ``start`` takes ``args[1:]``.  With
+        ``example_args`` a plan on the card captures its step on them."""
         key = self.plans.key_for(fn, args, self._comm_key)
-        return self.plans.get_or_init(lambda: fn, key=key, device=self.device,
+        return self.plans.get_or_init(lambda: functools.partial(fn, args[0]), key=key,
+                                      device=self.device, example_args=example_args,
                                       name=fn.__name__)
 
     def _fill_slots(self, finished: dict[int, list[int]]) -> None:
@@ -169,7 +181,7 @@ class ServingEngine:
             fn = self._prefill_bucketed_fn
             args = (self.params, {"tokens": torch.as_tensor(padded, device=self.device)}, cache1,
                     true_len)
-        logits, cache1 = self._plan(fn, args).start(*args)
+        logits, cache1 = self._plan(fn, args).start(*args[1:])
         self.stats.prefills += 1
         self._cache = _write_slot(self._cache, cache1, slot, self._slot_axes)
         self._positions[slot] = plen
@@ -185,8 +197,10 @@ class ServingEngine:
         # shared cache decode: cache["pos"] is (B,) per slot, written at
         # prefill time (continuous batching needs no uniform position)
         args = (self.params, torch.as_tensor(tokens, device=self.device), self._cache)
-        logits, self._cache = self._plan(self._decode_fn, args).start(*args)
+        plan = self._plan(self._decode_fn, args, example_args=args[1:])
+        logits, self._cache = plan.start(*args[1:])
         self.stats.decode_steps += 1
+        # outside the graph: the step's one synchronization
         nxt_all = logits[:, 0].float().argmax(dim=-1).tolist()
         for i, req in enumerate(self._slots):
             if req is None:
@@ -212,6 +226,18 @@ def _next_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def _carry(cache: dict, new: dict) -> dict:
+    """Write the entries of a decode step's returned cache ``new`` that are
+    fresh tensors (the dense model's ``pos + 1``, the RWKV state) back into
+    ``cache`` in place, and return ``cache``: a captured decode step's
+    outputs are then its own static inputs, and entries already updated in
+    place (the dense K/V cache) are never copied."""
+    for name, t in new.items():
+        if t is not cache[name]:
+            cache[name].copy_(t)
+    return cache
 
 
 def _write_slot(batched_cache: dict, cache1: dict, slot: int, slot_axes: dict) -> dict:

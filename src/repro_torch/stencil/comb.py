@@ -73,7 +73,8 @@ def run_cycles(
     return_final: bool = False,
 ) -> CycleResult | tuple[CycleResult, torch.Tensor]:
     """Time ``n_cycles`` exchange(+update) iterations, paper-style.
-    ``init_us`` (tables, uploads, buffers) is charged only to strategies
+    ``init_us`` (tables, uploads, buffers, and on the card the plan's
+    warm-up and CUDA-graph capture) is charged only to strategies
     declaring ``amortizes_init``.  With ``return_final`` the last block
     comes back beside the result (valid until the driver is freed)."""
     dev = driver.mesh.device

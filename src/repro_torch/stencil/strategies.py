@@ -12,7 +12,9 @@ work on its free ``(R, *local_ghosted)`` view.
   (fresh ``Isend``/``Irecv`` envelopes).
 * ``persistent``  — Alg. 2/3/4: all of that once, at ``init``, into a
   :class:`~repro_torch.core.plan.CommPlan`; a step only packs, moves and
-  unpacks (``MPI_Start``).
+  unpacks (``MPI_Start``).  On the card the plan captures the step as a
+  CUDA graph at ``init`` and a step replays it; ``standard`` stays eager,
+  the baseline's normal dispatch path.
 * ``partitioned`` — Alg. 5/6/7: persistent, every face split into
   ``n_parts`` partitions, run as pipelined rounds on the current stream.
 * ``fused``       — all ``3^D - 1`` face/edge/corner messages in one group.
@@ -135,6 +137,10 @@ class _OverlapStep(_Step):
         super().__init__(prepared, ranks, update_fn, donate=False)
         self.bufs = (torch.empty_like(example), torch.empty_like(example))
         self.array_axes, self.halo = array_axes, halo
+        #: a captured plan replays one graph a parity, each reading one
+        #: buffer and writing the other (the output buffer is chosen in
+        #: Python, which a capture freezes)
+        self.graph_inputs = ((self.bufs[0],), (self.bufs[1],))
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         from repro_torch.stencil.domain import overlapped_update
@@ -369,6 +375,7 @@ class PersistentStrategy(ExchangeStrategy):
             return
         self._plan = transport_plan(
             lambda: self._build_step(example), device=self.mesh.device,
+            example_args=(example,),
             schedule=self.build_spec().schedule_info(self.schedule_kind),
             layouts=lambda: self.wire_layouts(example),
             cache=self.config.resolve_cache(), key=self._plan_key(example),
@@ -475,6 +482,8 @@ class AutoStrategy(ExchangeStrategy):
         self.config = config
         self._inner: ExchangeStrategy | None = None
         self._owned_cache: PlanCache | None = None
+        #: (us, plan key) of the fastest probe so far
+        self._fastest_probe: tuple[float, object] | None = None
         #: selection provenance, set at resolution
         self.selected_by: str | None = None
         self.predicted_us: float | None = None
@@ -540,9 +549,28 @@ class AutoStrategy(ExchangeStrategy):
             for _ in range(autotune.PROBE_CYCLES):
                 x = drv.step(x)
             drv.wait(x)
-            return (time.perf_counter() - t0) / autotune.PROBE_CYCLES * 1e6
+            us = (time.perf_counter() - t0) / autotune.PROBE_CYCLES * 1e6
         finally:
             drv.free()  # the shared probe cache keeps the plan initialized
+        self._keep_fastest_probe(drv, example, us)
+        return us
+
+    def _keep_fastest_probe(self, drv: ExchangeStrategy, example: torch.Tensor,
+                            us: float) -> None:
+        """In a driver-owned probe cache, keep only the fastest probe's plan
+        so far (the first of equals, as the tuner's ``min``): the resolved
+        driver's cache hit when calibration picks it.  A captured plan holds
+        a static copy of the block and a graph pool, so the others go at
+        once.  A shared cache keeps every plan (another driver may hold it)."""
+        if self._owned_cache is None:
+            return
+        key = drv._plan_key(example) if isinstance(drv, PersistentStrategy) else None
+        if self._fastest_probe is None or us < self._fastest_probe[0]:
+            if self._fastest_probe is not None and self._fastest_probe[1] is not None:
+                self._owned_cache.discard(self._fastest_probe[1])
+            self._fastest_probe = (us, key)
+        elif key is not None:
+            self._owned_cache.discard(key)
 
     def _resolve(self, example: torch.Tensor) -> None:
         if self._inner is not None:

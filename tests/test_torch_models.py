@@ -181,3 +181,43 @@ def test_ring_context_raises():
                 ParallelContext(mesh=object(), tp_mode="ring")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.logits(params, toks, ctx=ctx)
+
+
+@pytest.mark.parametrize("name", ["qwen2.5-14b", "granite-8b"])
+def test_nonzero_qkv_biases_match_jax(name):
+    """Reduced qwen2.5-14b with nonzero QKV biases (its ``init`` makes
+    zeros, which no other test moves) and reduced granite-8b (tied
+    embeddings; its published config has no QKV bias, so its params must
+    hold none): logits, a prefill and one decode step against the JAX model
+    in f32, at the f32 tolerance ``rtol=atol=1e-4`` (module docstring)."""
+    cfg, jcfg = _cfgs(name, "float32")
+    jm, tm = j_build_model(jcfg), build_model(cfg, "cpu")
+    tree = _numpy_tree(jm.init(jax.random.key(3)))
+    rng = np.random.default_rng(4)
+    attn = tree["layers"]["attn"]
+    biases = ("bq", "bk", "bv")
+    if cfg.qkv_bias:
+        for b in biases:
+            attn[b] = rng.normal(0.0, 0.5, size=attn[b].shape).astype(np.float32)
+    else:
+        assert not set(biases) & set(attn)
+    jp = jax.tree.map(jax.numpy.asarray, tree)
+    tp = params_from_jax(cfg, tree, "cpu")
+    if cfg.qkv_bias:
+        assert all(float(tp["layers"][i]["attn"][b].abs().min()) > 0
+                   for i in range(cfg.n_layers) for b in biases)
+    tol = TOL["float32"]
+    toks = rng.integers(0, cfg.vocab_size, size=(2, 12)).astype(np.int32)
+    _close(tm.logits(tp, {"tokens": torch.from_numpy(toks)}),
+           jm.logits(jp, {"tokens": toks}), tol)
+    want, wcache = jm.prefill(jp, {"tokens": toks}, jm.init_cache(2, 16))
+    got, gcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tm.init_cache(2, 16))
+    _close(got, want, tol)
+    for k in ("k", "v"):
+        _close(gcache[k], wcache[k], tol)
+    nxt = np.asarray(want, np.float32)[:, 0].argmax(-1).astype(np.int32)[:, None]
+    want, wcache = jm.decode_step(jp, nxt, wcache)
+    got, gcache = tm.decode_step(tp, torch.from_numpy(nxt), gcache)
+    _close(got, want, tol)
+    for k in ("k", "v"):
+        _close(gcache[k], wcache[k], tol)
