@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU: the halo
-exchange (heat3d) and its §VI sweep, llama3-8b serving and rwkv6-1.6b
-serving.
+exchange (heat3d), its §VI sweep and its multi-process grid, llama3-8b
+serving and rwkv6-1.6b serving.
 
     python3 chip_smoke.py
 
@@ -133,6 +133,24 @@ E. The paper's §VI sweep on the card (``repro_torch.stencil.sweep``):
    a fresh cache (``calibration``), and again on that cache (``cache``, the
    same candidate); each auto driver's cycles must be bitwise-equal to the
    resolved static driver's on the same seed.
+F. The paper's process axis on the one card: (1) a grid of 2 processes
+   (``repro_torch.launch.stencil.launch_grid``, gloo, both on ``cuda:0``)
+   at the heat3d layout, 4 ranks a process, ``pz`` crossing the process
+   boundary; in each process all five strategies with packer ``cuda``,
+   coalesced (``partitioned`` p4), through the ``multihost`` transport
+   (pack on the card, pinned host staging, gloo, unpack on the card; plans
+   eager): rows bitwise-equal to ``reference_exchange`` at 64^3 and to a
+   one-process ``loopback`` run of the same seeded block at full size,
+   ``copy_convert`` and ``gather_pack`` launched in both processes, no
+   plan captured; per strategy ``us_per_cycle`` beside phase E's
+   one-process cell, the host staging's share of a cycle (d2h, gloo, h2d)
+   and the intra/inter-node sends (a node is a process: real crossings);
+   (2) phase E's 8-rank slab with ``processes=2`` (three sizes, five
+   strategies, ``slice``/``cuda``, coalesce off/on, ``n_parts`` 1 and 4,
+   50 x 3 cycles) written to ``chiprun_out/BENCH_torch_stencil_sweep_p2.json``
+   (copied to the repository root and committed), its exact cells'
+   checksums within 1e-12 of the one-process grid's.  A failed rank fails
+   the run.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -200,6 +218,16 @@ SWEEP_CYCLES, SWEEP_REPEATS = 200, 3
 AUTO_CYCLES = 3
 #: decode steps a timing window (phases B and D, eager and graph in turns)
 DECODE_STEPS = 20
+#: phase F: processes of the grid on the one card, its heat3d cells' timed
+#: cycles, the reference check's size, and the p2 sweep slab (phase E's
+#: 8-rank slab) with its cycles (cut from phase E's 200 x 3 to keep the
+#: phase near two minutes: a grid cycle crosses gloo on the host)
+GRID_PROCESSES = 2
+GRID_CYCLES, GRID_REPEATS = 50, 3
+GRID_REF_SIZE = (64, 64, 64)
+P2_PARTS = (1, 4)
+P2_CYCLES, P2_REPEATS = 50, 3
+GRID_TIMEOUT = 600.0
 
 
 def fail(msg: str) -> None:
@@ -1086,6 +1114,225 @@ def sweep_phase(torch, dev, out_dir: pathlib.Path) -> dict:
     return out
 
 
+def grid_worker(out_path: str) -> int:
+    """One process of phase F's grid (``python3 chip_smoke.py --grid-worker
+    OUT``, booted by :func:`grid_phase` through ``launch_grid``): the heat3d
+    layout, this process's ranks on ``cuda:0``; writes its results to
+    ``OUT/phase_f_rank<r>.json``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.stencil import maybe_initialize_from_env
+
+    rank = maybe_initialize_from_env()
+    import torch
+
+    from repro_torch.core import transport
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mapping import mesh_node_ids
+    from repro_torch.stencil import Domain, StrategyConfig, make_driver, reference_exchange
+    from repro_torch.stencil.comb import run_cycles
+    from repro_torch.stencil.heat3d import DOMAIN_AXES
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    strategies = ("standard", "persistent", "partitioned", "fused", "overlap")
+
+    def config(name, transport_name):
+        return StrategyConfig(name=name, packer="cuda", coalesce=True, transport=transport_name,
+                              n_parts=4 if name == "partitioned" else 1)
+
+    def grid_mesh():
+        return make_mesh(*MESH, device=dev, processes=GRID_PROCESSES, process_index=rank)
+
+    out = {"rank": rank, "device": torch.cuda.get_device_name(dev)}
+    # the port's reference roll at 64^3, this process's rows
+    small = Domain(grid_mesh(), GRID_REF_SIZE, DOMAIN_AXES)
+    interior = torch.randn(GRID_REF_SIZE, generator=torch.Generator().manual_seed(1))
+    want = reference_exchange(small, interior)
+    out["reference"] = {}
+    for name in strategies:
+        drv = make_driver(config(name, "multihost"), small.mesh, small.halo_spec, ndim=3)
+        got = drv.wait(drv.step(small.from_global_interior(interior)))
+        out["reference"][name] = torch.equal(got, want)
+        drv.free()
+    del want, got
+
+    # the heat3d layout: the grid's rows against a one-process loopback run
+    one = Domain(make_mesh(*MESH, device=dev), GLOBAL_INTERIOR, DOMAIN_AXES)
+    grid = Domain(grid_mesh(), GLOBAL_INTERIOR, DOMAIN_AXES)
+    rows = list(grid.mesh.local_coords)
+    local = grid.local_ghosted
+    t0 = time.perf_counter()
+    x1 = one.random(0)
+    xg = grid.random(0)
+    out["random_s"] = time.perf_counter() - t0
+    out["coords"] = rows
+    out["random_rows_equal"] = torch.equal(x1.view(-1, *local)[rows], xg)
+    node_of = mesh_node_ids(grid.mesh, grid.mesh.local_size)  # a node is a process
+    cells = {}
+    for name in strategies:
+        d1 = make_driver(config(name, "loopback"), one.mesh, one.halo_spec, ndim=3)
+        ref = d1.wait(d1.step(x1.clone())).reshape(-1, *local)[rows].clone()
+        d1.free()
+        torch.cuda.empty_cache()
+        drv = make_driver(config(name, "multihost"), grid.mesh, grid.halo_spec, ndim=3)
+        _build.reset_launches()
+        res, final = run_cycles(drv, xg.clone(), n_cycles=GRID_CYCLES, repeats=GRID_REPEATS,
+                                return_final=True)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        equal = torch.equal(final, ref)
+        # host staging: a window of GRID_CYCLES cycles with the clocks zeroed
+        transport.reset_staging()
+        import torch.distributed as dist
+
+        dist.barrier()
+        x = final
+        t0 = time.perf_counter()
+        for _ in range(GRID_CYCLES):
+            x = drv.step(x)
+        x = drv.wait(x)
+        window = time.perf_counter() - t0
+        staging = dict(transport.STAGING_SECONDS)
+        groups = drv.replan_tables(xg)[0]
+        loc = transport.schedule_locality(groups, axis_order=grid.mesh.axis_names,
+                                          axis_sizes=grid.mesh.shape, node_of=node_of)
+        plan = getattr(drv, "plan", None)
+        cells[name] = dict(
+            us_per_cycle=res.us_per_cycle, init_us=res.init_us, checksum=res.checksum,
+            process_count=res.process_count, bitwise_vs_one_process=equal, launches=launches,
+            captured=plan is not None and plan.captured,
+            window_us_per_cycle=window / GRID_CYCLES * 1e6,
+            staging_us_per_cycle={k: v / GRID_CYCLES * 1e6 for k, v in staging.items()},
+            staging_share=sum(staging.values()) / window,
+            intra_node_sends=loc.intra_sends, inter_node_sends=loc.inter_sends,
+        )
+        drv.free()
+        del ref, final, x
+        torch.cuda.empty_cache()
+    out["cells"] = cells
+    pathlib.Path(out_path, f"phase_f_rank{rank}.json").write_text(json.dumps(out, indent=1))
+    return 0
+
+
+def grid_phase(torch, dev, out_dir: pathlib.Path) -> dict:
+    """Phase F: the paper's process axis on one card (see the module
+    docstring)."""
+    import dataclasses
+
+    from repro_torch.core.transport import get_packer
+    from repro_torch.launch.stencil import launch_grid
+    from repro_torch.stencil import sweep
+
+    clock, out = {}, {}
+    # -- F1: the heat3d layout over two processes ---------------------------
+    t0 = time.perf_counter()
+    for r in range(GRID_PROCESSES):
+        (out_dir / f"phase_f_rank{r}.json").unlink(missing_ok=True)
+    res = launch_grid([sys.executable, str(ROOT / "chip_smoke.py"), "--grid-worker",
+                       str(out_dir)], processes=GRID_PROCESSES, timeout=GRID_TIMEOUT,
+                      check=False)
+    clock["heat3d_grid_s"] = time.perf_counter() - t0
+    if not res.ok:
+        fail(f"grid: ranks {res.failed_ranks} failed (exit {res.returncodes}):\n"
+             + "\n".join(f"--- rank {r} ---\n{res.errs[r][-3000:]}" for r in res.failed_ranks))
+    ranks = [json.loads((out_dir / f"phase_f_rank{r}.json").read_text())
+             for r in range(GRID_PROCESSES)]
+    e_records, _ = sweep.read_bench_json(str(out_dir / "BENCH_torch_stencil_sweep.json"))
+
+    def one_process(name, n_parts, packer="cuda", coalesce=True):
+        (r,) = [r for r in e_records if r["n_devices"] == 8 and r["strategy"] == name
+                and tuple(r["global_interior"]) == GLOBAL_INTERIOR and r["packer"] == packer
+                and r["coalesce"] == coalesce and r["n_parts"] == n_parts]
+        return r
+
+    coords = sorted(c for w in ranks for c in w["coords"])
+    if coords != list(range(8)) or not all(w["random_rows_equal"] for w in ranks):
+        fail(f"grid: coordinates {[w['coords'] for w in ranks]}, Domain.random rows equal "
+             f"{[w['random_rows_equal'] for w in ranks]}")
+    totals: dict[str, int] = {}
+    for w in ranks:
+        for name, ok in w["reference"].items():
+            if not ok:
+                fail(f"grid rank {w['rank']} {name}: rows differ from reference_exchange at "
+                     f"{GRID_REF_SIZE}")
+        for name, c in w["cells"].items():
+            want = {"copy_convert", "gather_pack"}
+            got = {k for k, v in c["launches"].items() if v > 0}
+            if not c["bitwise_vs_one_process"] or c["captured"] or got != want:
+                fail(f"grid rank {w['rank']} {name}: bitwise {c['bitwise_vs_one_process']}, "
+                     f"captured {c['captured']}, launches {c['launches']}")
+            for k, v in c["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+    sums = {name: {w["cells"][name]["checksum"] for w in ranks} for name in ranks[0]["cells"]}
+    if any(len(v) != 1 for v in sums.values()):
+        fail(f"grid: the processes' checksums differ: {sums}")
+    rows = []
+    for name in ranks[0]["cells"]:
+        c0, c1 = (w["cells"][name] for w in ranks)
+        e = one_process(name, 4 if name == "partitioned" else 1)
+        staging = {k: max(w["cells"][name]["staging_us_per_cycle"].get(k, 0.0) for w in ranks)
+                   for k in ("d2h", "gloo", "h2d")}
+        row = dict(strategy=name, us_per_cycle=max(c0["us_per_cycle"], c1["us_per_cycle"]),
+                   one_process_us=e["us_per_cycle"],
+                   staging_share=max(c0["staging_share"], c1["staging_share"]),
+                   staging_us_per_cycle=staging, init_us=max(c0["init_us"], c1["init_us"]),
+                   # the whole mesh's static tally, the same in each process
+                   intra_node_sends=c0["intra_node_sends"],
+                   inter_node_sends=c0["inter_node_sends"],
+                   one_process_intra_inter=[e["intra_node_sends"], e["inter_node_sends"]],
+                   checksum_vs_one_process=c0["checksum"] - e["checksum"])
+        rows.append(row)
+        print(f"grid heat3d {name}@cuda coalesced over {GRID_PROCESSES} processes: "
+              f"{row['us_per_cycle']:.1f} us/cycle (one process, graph, phase E: "
+              f"{e['us_per_cycle']:.1f}); host staging {row['staging_share']:.3f} of the cycle "
+              f"(us/cycle d2h {staging['d2h']:.0f}, gloo {staging['gloo']:.0f}, h2d "
+              f"{staging['h2d']:.0f}); intra/inter-node sends {row['intra_node_sends']}/"
+              f"{row['inter_node_sends']} (one process, modeled nodes: "
+              f"{e['intra_node_sends']}/{e['inter_node_sends']}); bitwise-equal to the "
+              f"one-process loopback run in both processes", flush=True)
+    print(f"grid heat3d: {len(rows)} strategies x {GRID_PROCESSES} processes on "
+          f"{ranks[0]['device']}, rows bitwise-equal to reference_exchange at {GRID_REF_SIZE} "
+          f"and to a one-process loopback run at {GLOBAL_INTERIOR}; launches in the grid "
+          f"{totals} (both processes, no plan captured); {clock['heat3d_grid_s']:.1f} s",
+          flush=True)
+    out.update(heat3d=rows, launches=totals, workers=ranks)
+
+    # -- F2: phase E's 8-rank slab with --processes 2 ------------------------
+    t0 = time.perf_counter()
+    config = sweep.SweepConfig(device_counts=(8,), part_counts=P2_PARTS, sizes=SWEEP_SIZES,
+                               packers=("slice", "cuda"), mesh_ndim=2, n_cycles=P2_CYCLES,
+                               repeats=P2_REPEATS, processes=GRID_PROCESSES,
+                               transport="multihost")
+    records = sweep.run_sweep(config, device=dev, timeout=GRID_TIMEOUT)
+    clock["p2_sweep_s"] = time.perf_counter() - t0
+    if len(records) != len(SWEEP_SIZES) * 4 * (4 + len(P2_PARTS)):
+        fail(f"p2 sweep: {len(records)} records")
+    worst = 0.0
+    for r in records:
+        if (r["process_count"] != GRID_PROCESSES or not r["is_multihost"]
+                or r["device"] != torch.cuda.get_device_name(dev) or not math.isfinite(r["checksum"])):
+            fail(f"p2 sweep record {r['strategy']} {r['global_interior']}: {r}")
+        e = one_process(r["strategy"], r["n_parts"], r["packer"], r["coalesce"]) \
+            if tuple(r["global_interior"]) == GLOBAL_INTERIOR else None
+        if e is not None and get_packer(r["packer"]).wire_tolerance("float32") == (0.0, 0.0):
+            worst = max(worst, abs(r["checksum"] - e["checksum"]) / abs(e["checksum"]))
+    if worst > 1e-12:
+        fail(f"p2 sweep: checksums differ from the one-process grid's by {worst} (relative)")
+    bench = out_dir / "BENCH_torch_stencil_sweep_p2.json"
+    sweep.write_bench_json(records, str(bench), config=sweep.config_block(config, device=dev))
+    for row in sweep.summarize(records):
+        print(row)
+    print(f"p2 sweep: {len(records)} records over {GRID_PROCESSES} processes -> "
+          f"{bench.relative_to(ROOT)} in {clock['p2_sweep_s']:.1f} s; every exact cell's last "
+          f"block bitwise-equal to its slab's first across both processes (comb_measure), "
+          f"checksums within {worst!r} (relative) of the one-process grid's at "
+          f"{GLOBAL_INTERIOR}; phase F clock {json.dumps({k: round(v, 1) for k, v in clock.items()})}",
+          flush=True)
+    out.update(p2_records=len(records), p2_checksum_rel=worst, clock=clock,
+               p2_config=dataclasses.asdict(config))
+    return out
+
+
 def main() -> int:
     import contextlib
     import io
@@ -1596,6 +1843,10 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     record["sweep"] = sweep_phase(torch, dev, out_dir)
+    torch.cuda.empty_cache()
+
+    # -- F. the process axis: a 2-process grid on the card -------------------
+    record["grid"] = grid_phase(torch, dev, out_dir)
 
     # -- 5. results -----------------------------------------------------------
     record.update(
@@ -1617,4 +1868,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--grid-worker"]:
+        sys.exit(grid_worker(sys.argv[2]))
     sys.exit(main())

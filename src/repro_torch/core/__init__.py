@@ -1,6 +1,6 @@
 # The halo-exchange core of the port:
-#   mesh      — one-card virtual mesh (all ranks stacked in one tensor)
-#   transport — Message tables, packers, the loopback transport
+#   mesh      — virtual mesh (a process's ranks stacked in one tensor)
+#   transport — Message tables, packers, the loopback and multihost transports
 #   plan      — persistent plans (MPI_Send_init analogue)
 #   halo      — N-D ghost-cell exchange schedules
 

@@ -155,8 +155,8 @@ def sequential_message_groups(
 
 
 def _local_shape(x: torch.Tensor, mesh: VirtualMesh) -> tuple[int, ...]:
-    if x.shape[0] != mesh.size:
-        raise ValueError(f"expected (R={mesh.size}, *local), got {tuple(x.shape)}")
+    if x.shape[0] != mesh.local_size:
+        raise ValueError(f"expected (R={mesh.local_size}, *local), got {tuple(x.shape)}")
     return tuple(x.shape[1:])
 
 

@@ -18,9 +18,13 @@ port's counterpart is a CUDA graph:
 * **free** (``MPI_Request_free``) resets the graph and drops its static
   buffers and its pool.
 
-On the CPU, and for a plan built without example arguments (the serving
-engine's prefill plans), *start* runs the step eagerly.  A capture or
-replay that fails on the card raises; nothing falls back to eager there.
+On the CPU, for a plan built without example arguments (the serving
+engine's prefill plans), and for a step that declares itself not
+``capturable`` (a halo step whose transport calls the host inside a move:
+``multihost`` across processes), *start* runs the step eagerly, on the
+buffers its factory allocated once.  The decision is read from that
+declaration; no capture is attempted and caught.  A capture or replay that
+fails on the card raises; nothing falls back to eager there.
 :attr:`CommPlan.fn` is the eager step, for measurement and checks.
 
 A :class:`PlanCache` is the table of initialized requests; its counters
@@ -70,7 +74,8 @@ class CommPlan:
     message tables, wire layouts, device segment tables and buffers.
 
     On a CUDA device with ``example_args``, the step is captured as a CUDA
-    graph (see the module docstring).  A step that owns buffers it
+    graph (see the module docstring), unless it carries ``capturable =
+    False``.  A step that owns buffers it
     alternates between carries ``graph_inputs``: a tuple of argument tuples,
     each captured as a graph of its own with those buffers as its static
     inputs; ``start`` replays the graph whose inputs the arguments already
@@ -92,7 +97,7 @@ class CommPlan:
         t0 = time.perf_counter()
         self.fn = factory()
         if device.type == "cuda":
-            if example_args is not None:
+            if example_args is not None and getattr(self.fn, "capturable", True):
                 self._capture(tuple(example_args))
             torch.cuda.synchronize(device)  # uploads, allocations, capture landed
         self.init_seconds = time.perf_counter() - t0

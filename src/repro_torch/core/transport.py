@@ -12,11 +12,14 @@ window becomes a contiguous wire buffer and back) and a :class:`Transport`
 * transports: ``"loopback"`` — all ranks of the :class:`~repro_torch.core.
   mesh.VirtualMesh` live stacked on one device, and one hop is ONE index
   gather over the rank dim (``lax.ppermute``'s counterpart, ranks receiving
-  nothing get zeros).
+  nothing get zeros); ``"multihost"`` — the mesh spans the processes of a
+  ``torch.distributed`` grid, and the rows a hop moves between two
+  processes travel as one gloo message each way.
 
 Tensors here are the stacked block's free view ``x`` of shape
-``(R, *local_ghosted)``: one pack covers the same window of every rank (the
-SPMD property), and the wire buffers are ``(R, ...)``.  The port updates
+``(R, *local_ghosted)``, ``R`` the ranks this process stacks: one pack
+covers the same window of every rank (the SPMD property), and the wire
+buffers are ``(R, ...)``.  The port updates
 ``x`` in place.  Within a delivery group every source slab is disjoint from
 every destination ghost window, so writing arrivals in place is equivalent
 to the JAX package's "every round packs from the group's original buffer".
@@ -30,10 +33,15 @@ standard baseline's per-step setup) and runs it.
 from __future__ import annotations
 
 import abc
+import collections
+import contextlib
 import dataclasses
 import itertools
 import math
-from typing import Any, ClassVar, Iterable, Mapping, Sequence
+import os
+import time
+import warnings
+from typing import Any, Callable, ClassVar, Iterable, Mapping, Sequence
 
 import torch
 
@@ -538,18 +546,20 @@ class ScaledInt8Packer(Packer):
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Route:
-    """One (composed) hop as a gather over the rank dim: receiver ``r``
-    takes row ``src[r]``; ``missing[r]`` marks receivers with no sender
-    (``None`` when every rank receives)."""
+    """One (composed) hop as a gather over this process's rows: receiver
+    row ``r`` takes row ``src[r]``; ``missing[r]`` marks receivers with no
+    sender (``None`` when every row receives)."""
 
     src: torch.Tensor
     missing: torch.Tensor | None
 
 
 def rank_sources(axis_name, perm, mesh: VirtualMesh) -> list[int | None]:
-    """Sending rank of every receiving rank for one hop over ``axis_name``
-    (a name or, for a composed hop, a tuple of names linearized row-major
-    in that order); ranks along the other mesh axes keep their coordinates."""
+    """Sending coordinate of every receiving coordinate of the whole mesh
+    for one hop over ``axis_name`` (a name or, for a composed hop, a tuple
+    of names linearized row-major in that order); coordinates along the
+    other mesh axes stay.  Indices are row-major coordinates, not rows of a
+    process: :meth:`Transport.route_table` maps them to rows."""
     names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
     ks = [mesh.shape[n] for n in names]
     idx = [mesh.axis_index(n) for n in names]
@@ -571,17 +581,41 @@ def rank_sources(axis_name, perm, mesh: VirtualMesh) -> list[int | None]:
 
 
 class Transport(abc.ABC):
-    """Moves packed ``(R, ...)`` buffers between the stacked ranks."""
+    """Moves packed ``(R, ...)`` buffers between the ranks of a mesh.
+
+    A move is split like ``MPI_Start``/``MPI_Wait``: :meth:`start` posts
+    it, :meth:`wait` completes it, so a caller can post several moves
+    before it waits for the first; :meth:`move` is both in one call."""
 
     name: ClassVar[str] = ""
 
     @abc.abstractmethod
-    def route_table(self, hop: Hop, mesh: VirtualMesh) -> Route:
-        """The device-side table of one (composed) hop, built once per plan."""
+    def route_table(self, hop: Hop, mesh: VirtualMesh, wire: torch.Tensor | None = None,
+                    *, tag: int = 0) -> Route:
+        """The tables of one (composed) hop over ``mesh``, built once per
+        plan.  ``wire`` is the buffer the route will move (a transport that
+        stages through buffers of its own sizes them by it); ``tag`` tells
+        this route's messages from a plan's other routes."""
 
     @abc.abstractmethod
+    def start(self, buf: torch.Tensor, route: Route, out: torch.Tensor | None = None) -> Any:
+        """Post one collective of ``buf`` into ``out``; what it returns is
+        :meth:`wait`'s argument.  Ranks receiving nothing get zeros
+        (ppermute rule)."""
+
+    def wait(self, pending: Any) -> torch.Tensor:
+        """Complete a started collective; returns the received buffer."""
+        return pending
+
     def move(self, buf: torch.Tensor, route: Route, out: torch.Tensor | None = None) -> torch.Tensor:
-        """One collective: ranks receiving nothing get zeros (ppermute rule)."""
+        """One collective, started and completed."""
+        return self.wait(self.start(buf, route, out))
+
+    def capturable(self, mesh: VirtualMesh) -> bool:
+        """Whether a move over ``mesh`` is device work alone, so that a
+        step holding it can be captured as a CUDA graph (a move that calls
+        the host, such as a socket send, cannot)."""
+        return True
 
     def validate(self) -> None:
         """Runtime sanity check when the backend is resolved for a schedule."""
@@ -589,13 +623,16 @@ class Transport(abc.ABC):
 
 @dataclasses.dataclass(frozen=True)
 class LoopbackTransport(Transport):
-    """All ranks on one device: a hop is ONE ``index_select`` over the rank
+    """All ranks in one process: a hop is ONE ``index_select`` over the rank
     dim from a precomputed source index, plus a zero-fill of the receivers
     that have no sender (non-periodic edges)."""
 
     name: str = "loopback"
 
-    def route_table(self, hop, mesh):
+    def route_table(self, hop, mesh, wire=None, *, tag=0):
+        if mesh.processes > 1:
+            raise ValueError(f"transport {self.name!r} cannot cross processes; the mesh spans "
+                             f"{mesh.processes} (use transport='multihost')")
         axis_name, perm = hop
         src_of = rank_sources(axis_name, perm, mesh)
         src = torch.tensor([0 if s is None else s for s in src_of],
@@ -605,12 +642,206 @@ class LoopbackTransport(Transport):
             missing = torch.tensor([s is None for s in src_of], device=mesh.device)
         return Route(src, missing)
 
-    def move(self, buf, route, out=None):
+    def start(self, buf, route, out=None):
         if out is None:
             out = torch.empty_like(buf)
         torch.index_select(buf, 0, route.src, out=out)
         if route.missing is not None:
             out.masked_fill_(route.missing.view(-1, *([1] * (buf.dim() - 1))), 0)
+        return out
+
+
+#: host seconds the multihost transport spent staging cross-process
+#: messages, by part: ``"d2h"`` waiting for a move's packed rows to reach
+#: the host (the pack kernels queued before it included), ``"gloo"`` in
+#: ``torch.distributed`` posts and waits, ``"h2d"`` copying arrivals to the
+#: card; :func:`reset_staging` zeroes it
+STAGING_SECONDS: collections.Counter = collections.Counter()
+
+
+def reset_staging() -> None:
+    STAGING_SECONDS.clear()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Peer:
+    """The rows one route exchanges with one other process: ``rows`` index
+    this process's rows (senders or receivers, in the receivers' coordinate
+    order), ``host`` is the wire on the host (pinned on the card), ``dev``
+    its staging copy on the card (``None`` on the CPU)."""
+
+    process: int
+    tag: int
+    rows: torch.Tensor
+    host: torch.Tensor
+    dev: torch.Tensor | None
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ProcessRoute(Route):
+    """A hop over a mesh that spans processes: ``src``/``missing`` serve
+    the rows whose sender is in this process; each other process's rows go
+    and come as ONE message a direction (``sends``, ``recvs``)."""
+
+    sends: tuple[_Peer, ...] = ()
+    recvs: tuple[_Peer, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiHostTransport(LoopbackTransport):
+    """The multi-process backend (the JAX ``multihost`` transport's name
+    and role): the mesh spans the processes of a ``torch.distributed``
+    grid booted by :mod:`repro_torch.launch.stencil`, each stacking its own
+    rows (:attr:`~repro_torch.core.mesh.VirtualMesh.local_coords`).
+
+    A hop gathers the rows whose sender is local with one ``index_select``,
+    as ``loopback`` does, and exchanges every other row with the process
+    that holds it: the rows bound for one process are gathered into one
+    wire buffer and posted as one ``isend``; the rows coming from one
+    process arrive by one ``irecv`` and are scattered into place.  Tags
+    pair messages by (route, source process, destination process).  The
+    backend is gloo: NCCL refuses two processes on one card, and gloo sends
+    host memory, so on the card a message goes the way MPI does without
+    GPU-direct: device gather, copy to pinned host memory (ordered behind
+    the pack by an event), gloo, copy back, device scatter.  Those host
+    calls cannot sit in a CUDA graph, so a step over processes is not
+    :meth:`capturable` and its plan runs eagerly.
+
+    On a mesh of one process it IS ``loopback``; selecting it in a
+    single-process runtime outside tests warns once (:meth:`validate`), as
+    the JAX transport does."""
+
+    name: str = "multihost"
+
+    #: one warning per process, not one per exchange
+    _warned_single_process: ClassVar[bool] = False
+
+    @staticmethod
+    def is_multihost() -> bool:
+        import torch.distributed as dist
+
+        return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+
+    def validate(self) -> None:
+        if self.is_multihost() or MultiHostTransport._warned_single_process:
+            return
+        if (os.environ.get("PYTEST_CURRENT_TEST")
+                or os.environ.get("REPRO_TORCH_ALLOW_SINGLE_PROCESS_MULTIHOST")):
+            return
+        MultiHostTransport._warned_single_process = True
+        warnings.warn(
+            "transport='multihost' selected but torch.distributed runs one process: no "
+            "message will cross a process boundary (the schedule runs as loopback).  Boot a "
+            "grid with `python -m repro_torch.launch.stencil --processes N ...` or the sweep's "
+            "--processes flag; set REPRO_TORCH_ALLOW_SINGLE_PROCESS_MULTIHOST=1 if this is "
+            "deliberate.",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+
+    def capturable(self, mesh):
+        return mesh.processes == 1
+
+    def route_table(self, hop, mesh, wire=None, *, tag=0):
+        if mesh.processes == 1:
+            return super().route_table(hop, mesh)
+        import torch.distributed as dist
+
+        if not (dist.is_initialized() and dist.get_world_size() == mesh.processes
+                and dist.get_rank() == mesh.process_index):
+            raise RuntimeError(
+                f"a mesh of {mesh.processes} processes (this one {mesh.process_index}) needs a "
+                f"torch.distributed grid of that size with this rank "
+                f"(see repro_torch.launch.stencil)")
+        axis_name, perm = hop
+        src_of = rank_sources(axis_name, perm, mesh)
+        me, procs, dev = mesh.process_index, mesh.processes, mesh.device
+        row = {c: i for i, c in enumerate(mesh.local_coords)}
+        src = [0] * mesh.local_size
+        missing = [False] * mesh.local_size
+        recv_rows: dict[int, list[int]] = {}
+        send_rows: dict[int, list[int]] = {}
+        # both sides walk receivers in coordinate order, so a message's rows
+        # line up without any header
+        for r, s in enumerate(src_of):
+            to, frm = mesh.process_of(r), None if s is None else mesh.process_of(s)
+            if to == me:
+                if s is None:
+                    missing[row[r]] = True
+                elif frm == me:
+                    src[row[r]] = row[s]
+                else:
+                    recv_rows.setdefault(frm, []).append(row[r])
+            elif frm == me:
+                send_rows.setdefault(to, []).append(row[s])
+        if (send_rows or recv_rows) and wire is None:
+            raise ValueError("a route across processes needs its wire buffer to size its staging")
+
+        def peers(table: dict[int, list[int]], sending: bool) -> tuple[_Peer, ...]:
+            out = []
+            for q, rows in sorted(table.items()):
+                a, b = (me, q) if sending else (q, me)
+                shape = (len(rows), *wire.shape[1:])
+                cuda = dev.type == "cuda"
+                out.append(_Peer(
+                    process=q, tag=(tag * procs + a) * procs + b,
+                    rows=torch.tensor(rows, dtype=torch.int64, device=dev),
+                    host=torch.empty(shape, dtype=wire.dtype, pin_memory=cuda),
+                    dev=torch.empty(shape, dtype=wire.dtype, device=dev) if cuda else None,
+                ))
+            return tuple(out)
+
+        return ProcessRoute(
+            src=torch.tensor(src, dtype=torch.int64, device=dev),
+            missing=torch.tensor(missing, device=dev) if any(missing) else None,
+            sends=peers(send_rows, True), recvs=peers(recv_rows, False),
+        )
+
+    def start(self, buf, route, out=None):
+        if not isinstance(route, ProcessRoute):
+            return super().start(buf, route, out)
+        import torch.distributed as dist
+
+        for p in route.sends:  # MPI_Pready: the rows bound for each process
+            if p.dev is None:
+                torch.index_select(buf, 0, p.rows, out=p.host)
+            else:
+                torch.index_select(buf, 0, p.rows, out=p.dev)
+                p.host.copy_(p.dev, non_blocking=True)
+        out = super().start(buf, route, out)  # the rows whose sender is here
+        if buf.device.type == "cuda" and (route.sends or route.recvs):
+            # the host waits for the staged rows, and for every earlier copy
+            # out of the receive buffers it is about to post
+            t0 = time.perf_counter()
+            done = torch.cuda.Event()
+            done.record()
+            done.synchronize()
+            STAGING_SECONDS["d2h"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        recvs = [dist.irecv(p.host, p.process, tag=p.tag) for p in route.recvs]
+        sends = [dist.isend(p.host, p.process, tag=p.tag) for p in route.sends]
+        STAGING_SECONDS["gloo"] += time.perf_counter() - t0
+        return route, out, recvs, sends
+
+    def wait(self, pending):
+        if isinstance(pending, torch.Tensor):
+            return pending
+        route, out, recvs, sends = pending
+        for p, work in zip(route.recvs, recvs):  # MPI_Parrived, process by process
+            t0 = time.perf_counter()
+            work.wait()
+            t1 = time.perf_counter()
+            STAGING_SECONDS["gloo"] += t1 - t0
+            if p.dev is None:
+                out.index_copy_(0, p.rows, p.host)
+            else:
+                p.dev.copy_(p.host)  # from pinned memory; returns once it landed
+                out.index_copy_(0, p.rows, p.dev)
+                STAGING_SECONDS["h2d"] += time.perf_counter() - t1
+        t0 = time.perf_counter()
+        for work in sends:
+            work.wait()
+        STAGING_SECONDS["gloo"] += time.perf_counter() - t0
         return out
 
 
@@ -679,11 +910,36 @@ register_packer(CudaPacker())
 register_packer(Bf16Packer())
 register_packer(ScaledInt8Packer())
 register_transport(LoopbackTransport())
+register_transport(MultiHostTransport())
 
 
 # ---------------------------------------------------------------------------
 # delivery choreography
 # ---------------------------------------------------------------------------
+
+#: the chaos seam (:func:`chaos_scope`): when set, the exchange calls it at
+#: labeled points while it builds a schedule's tables — ``"group"`` on
+#: entering a delivery group, ``"round"`` before each coalesced partition
+#: round — the counterpart of the JAX package's trace-time points.  A probe
+#: that raises aborts the plan's init (no half-built plan is cached).
+_CHAOS_PROBE: Callable[[str], None] | None = None
+
+
+@contextlib.contextmanager
+def chaos_scope(probe: Callable[[str], None] | None):
+    """Install ``probe`` as the exchange's chaos hook for the dynamic extent
+    of the block (``None`` leaves the seam disabled)."""
+    global _CHAOS_PROBE
+    prev, _CHAOS_PROBE = _CHAOS_PROBE, probe
+    try:
+        yield
+    finally:
+        _CHAOS_PROBE = prev
+
+
+def _chaos(point: str) -> None:
+    if _CHAOS_PROBE is not None:
+        _CHAOS_PROBE(point)
 
 
 @dataclasses.dataclass(eq=False)
@@ -711,15 +967,18 @@ class _Single:
 class PreparedExchange:
     """A schedule ready to start: everything that does not depend on the
     data is built here, once — route tables and segment tables uploaded,
-    wire buffers allocated (the ``MPI_Send_init`` work).  :meth:`run`
-    then only packs, moves and unpacks.
+    wire buffers and the transport's staging buffers allocated, sized by
+    the rows this process stacks (the ``MPI_Send_init`` work).
+    :meth:`run` then only packs, moves and unpacks.
 
     Groups run in order (group *i+1* packs from what group *i* unpacked —
     the sequential corner trick).  Uncoalesced: every partition of every
     message is packed and moved before any unpack.  Coalesced: one buffer
-    and one gather per (round, hop chain); round *k+1* packs after round
-    *k* unpacked, which equals packing from the group's original buffer
-    because a group's sources and ghost windows are disjoint.
+    and one move per (round, hop chain); every round is packed and its
+    move started (``MPI_Pready``) before the first round's arrivals are
+    unpacked (``MPI_Parrived``), round by round.  That equals JAX's "every
+    round packs from the group's original buffer": a group's sources and
+    ghost windows are disjoint.
     """
 
     def __init__(
@@ -738,20 +997,28 @@ class PreparedExchange:
         self.transport = t = resolve_transport(transport)
         self.coalesce = coalesce
         self.local_shape = tuple(local_shape)
-        dev, ranks = mesh.device, mesh.size
+        #: rows of the stacked block this process holds
+        self.ranks = ranks = mesh.local_size
+        #: whether a step of this schedule may be captured as a CUDA graph
+        self.capturable = t.capturable(mesh)
+        dev = mesh.device
         wire = p.wire_dtype(dtype)
+        tags = itertools.count()
         self.layouts: list[WireLayout] = []
         self._groups: list[list] = []
         for group in self.groups:
+            _chaos("group")
             if coalesce:
                 rounds = []
                 for chains in coalesced_rounds(group):
+                    _chaos("round")
                     cells = []
                     for hops, parts in chains:
                         layout = coalesced_layout(parts, hops, p, dtype)
                         hop = composed_hop(hops, mesh.shape)
-                        route = None if hop is None else t.route_table(hop, mesh)
                         send = torch.empty((ranks, layout.total), dtype=wire, device=dev)
+                        route = (None if hop is None
+                                 else t.route_table(hop, mesh, send, tag=next(tags)))
                         cells.append(_Coalesced(
                             layout, route, p.table(layout, self.local_shape, dev), send,
                             None if route is None else torch.empty_like(send),
@@ -765,15 +1032,15 @@ class PreparedExchange:
                     for part in msg.partitions():
                         send = torch.empty((ranks, *part.shape), dtype=wire, device=dev)
                         singles.append(_Single(
-                            part, [t.route_table(h, mesh) for h in part.hops],
+                            part, [t.route_table(h, mesh, send, tag=next(tags)) for h in part.hops],
                             (send, torch.empty_like(send) if part.hops else None),
                         ))
                 self._groups.append(singles)
 
     def run(self, x: torch.Tensor) -> torch.Tensor:
         """Deliver the whole schedule into ``x`` (R, *local) in place."""
-        if tuple(x.shape[1:]) != self.local_shape:
-            raise ValueError(f"block {tuple(x.shape[1:])} != plan's {self.local_shape}")
+        if tuple(x.shape) != (self.ranks, *self.local_shape):
+            raise ValueError(f"block {tuple(x.shape)} != plan's {(self.ranks, *self.local_shape)}")
         p, t = self.packer, self.transport
         for group in self._groups:
             if not self.coalesce:
@@ -788,12 +1055,16 @@ class PreparedExchange:
                 for part, buf in arrived:
                     p.unpack(x, buf, part.dst_start, part.shape)
                 continue
+            started = []
             for cells in group:
                 for c in cells:
                     p.pack_coalesced(x, c.layout, table=c.table, out=c.send)
                 for c in cells:
-                    buf = c.send if c.route is None else t.move(c.send, c.route, out=c.recv)
-                    p.unpack_coalesced(x, buf, c.layout)
+                    started.append((c, None if c.route is None
+                                    else t.start(c.send, c.route, out=c.recv)))
+            for c, pending in started:
+                buf = c.send if pending is None else t.wait(pending)
+                p.unpack_coalesced(x, buf, c.layout)
         return x
 
 

@@ -4,7 +4,11 @@
 The paper's protocol (§V): synchronize before timing, run many exchange
 cycles, take the mean per-cycle cost, repeat and average.  The barrier is
 ``torch.cuda.synchronize()`` on the card, and the clock is the host's
-around work that ends in that barrier.  Every record names its device.
+around work that ends in that barrier.  On a mesh that spans processes,
+every process also meets at ``torch.distributed.barrier()`` before each
+timed window (Comb's ``MPI_Barrier``), and the checksum and the bitwise
+holds are decided over all processes.  Every record names its device and
+its process count.
 """
 
 from __future__ import annotations
@@ -58,9 +62,35 @@ class CycleResult:
     warm_ranks: int = 0
     #: where the cycles ran: the card's name, or "cpu"
     device: str = ""
+    #: processes the mesh spans
+    process_count: int = 1
 
     def record(self) -> dict:
         return dataclasses.asdict(self)
+
+
+def _all_processes(mesh, ok: bool) -> bool:
+    """``ok`` held in every process of the mesh's grid (a collective there),
+    so that every process takes the same branch."""
+    if mesh.processes == 1:
+        return ok
+    import torch.distributed as dist
+
+    t = torch.tensor([int(ok)])
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return bool(t)
+
+
+def checksum(x: torch.Tensor, mesh) -> float:
+    """The float64 sum of the stacked block over its element count, summed
+    over every process of a grid first (a collective there), so that a
+    grid's checksum is its one-process cell's."""
+    total = x.sum(dtype=torch.float64).cpu().reshape(1)
+    if mesh.processes > 1:
+        import torch.distributed as dist
+
+        dist.all_reduce(total)
+    return float(total) / (x.numel() * mesh.processes)
 
 
 def run_cycles(
@@ -106,17 +136,21 @@ def run_cycles(
     times = []
     for _ in range(repeats):
         driver.wait(x)  # the paper's pre-timing barrier
+        if driver.mesh.processes > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
         t0 = time.perf_counter()
         for _ in range(n_cycles):
             x = driver.step(x)
         driver.wait(x)  # Waitall before stopping the clock
         times.append((time.perf_counter() - t0) / n_cycles * 1e6)
-    # sum then one division, the same on the card and on the CPU (a float64
-    # sum of a small f32 block is exact in any order)
-    checksum = float(x.sum(dtype=torch.float64)) / x.numel()
     result = CycleResult(
         strategy=driver.strategy, us_per_cycle=float(np.mean(times)),
-        init_us=init_us, n_cycles=n_cycles, repeats=repeats, checksum=checksum,
+        init_us=init_us, n_cycles=n_cycles, repeats=repeats,
+        # sum then one division, the same on the card and on the CPU (a
+        # float64 sum of a small f32 block is exact in any order)
+        checksum=checksum(x, driver.mesh),
         n_parts=driver.n_parts, packer=driver.config.packer,
         transport=driver.config.transport, coalesce=driver.config.coalesce,
         mapping=driver.config.mapping, collective_count=collective_count,
@@ -127,7 +161,7 @@ def run_cycles(
         selected_by=getattr(driver, "selected_by", None),
         predicted_us=getattr(driver, "predicted_us", None),
         calibration_us=getattr(driver, "calibration_us", 0.0),
-        device=device_name(dev),
+        device=device_name(dev), process_count=driver.mesh.processes,
     )
     return (result, x) if return_final else result
 
@@ -175,7 +209,9 @@ def comb_measure(
     """Measure every strategy on one domain (on the domain's device) from
     the same seeded state; checksums must agree within the packers' wire
     tolerance, and every exact-packer cell's last block must equal the first
-    exact-packer cell's bitwise (the JAX package checks checksums only).
+    exact-packer cell's bitwise (the JAX package checks checksums only; on
+    a grid each process holds its own rows, and a difference in any
+    process fails them all).
     Keys follow :func:`result_label` (``#pN``/``#2`` suffixes for repeats,
     as in the JAX package).  The seeded state is drawn once and each
     strategy steps its own copy."""
@@ -205,7 +241,7 @@ def comb_measure(
             if wire_tol(res) == (0.0, 0.0):
                 if exact_ref is None:
                     exact_ref = (label, final.clone())
-                elif not torch.equal(final, exact_ref[1]):
+                elif not _all_processes(domain.mesh, torch.equal(final, exact_ref[1])):
                     raise AssertionError(f"strategy {label}'s block differs from "
                                          f"{exact_ref[0]}'s (exact packers move data bitwise)")
             results[label] = res

@@ -9,6 +9,16 @@ decomposed array as one global array of shape :attr:`Domain.stored_global`
 (:mod:`repro_torch.core.mesh`).  :func:`stacked_from_stored` and
 :func:`stored_from_stacked` convert between the two, which is how the same
 state is handed to both packages.
+
+On a mesh that spans processes, a process stores only its own rows,
+``(local_size, *local_ghosted)`` in coordinate order.  What takes a whole
+array in (:meth:`Domain.from_global_interior`, :meth:`Domain.random`,
+:func:`stacked_from_stored`, :func:`reference_exchange`) keeps this
+process's rows of it, as JAX's ``make_array_from_callback`` keeps each
+process's shards; what gives a whole array out
+(:meth:`Domain.to_global_interior`, :func:`stored_from_stacked`) gathers
+every process's rows to process 0, which returns the array (the others
+return ``None``): a collective every process must call.
 """
 
 from __future__ import annotations
@@ -88,8 +98,9 @@ class Domain:
 
     @property
     def stacked_shape(self) -> tuple[int, ...]:
-        """Shape of the port's stored layout, ``(*mesh_shape, *local_ghosted)``."""
-        return (*self.mesh.axis_sizes, *self.local_ghosted)
+        """Shape of this process's stored layout, ``(*mesh_shape,
+        *local_ghosted)``, or ``(local_size, *local_ghosted)`` on a grid."""
+        return (*self.mesh.stacked_dims, *self.local_ghosted)
 
     def face_bytes(self) -> dict[str, int]:
         """Per decomposed mesh axis: bytes of one face message (a
@@ -134,7 +145,7 @@ class Domain:
         """Index of the interior cells in the stacked layout."""
         h = self.halo
         return (
-            *(slice(None),) * len(self.mesh.axis_sizes),
+            *(slice(None),) * len(self.mesh.stacked_dims),
             *(slice(h, -h) if name else slice(None) for name in self.mesh_axes),
         )
 
@@ -145,20 +156,26 @@ class Domain:
         if tuple(t.shape) != self.global_interior:
             raise ValueError(f"interior {tuple(t.shape)} != {self.global_interior}")
         out = torch.zeros(self.stacked_shape, dtype=self.torch_dtype, device=self.device)
-        out[self.interior_window()] = _split_to_stacked(self, t, self.local_interior)
+        out[self.interior_window()] = _own_rows(self, _split_to_stacked(self, t, self.local_interior))
         return out
 
-    def to_global_interior(self, x: torch.Tensor) -> np.ndarray:
+    def to_global_interior(self, x: torch.Tensor) -> np.ndarray | None:
         """Strip ghosts and reassemble the dense global interior (host numpy;
-        bf16 comes back as f32, which holds it exactly)."""
-        t = _merge_from_stacked(self, x[self.interior_window()])
+        bf16 comes back as f32, which holds it exactly).  On a grid, every
+        process calls it and process 0 gets the array, the others ``None``."""
+        x = _gather_stacked(self, x[self.interior_window()])
+        if x is None:
+            return None
+        t = _merge_from_stacked(self, x)
         return t.float().cpu().numpy() if t.dtype == torch.bfloat16 else t.cpu().numpy()
 
     def random(self, seed: int = 0) -> torch.Tensor:
         """Unit-normal interior drawn on the host from one seeded CPU
         ``torch.Generator``, then uploaded, so one seed gives the same state
         on the card and on the CPU, and a card run of a cell can be compared
-        with a CPU run bitwise.  Not the JAX package's numpy draw."""
+        with a CPU run bitwise.  On a grid every process draws the whole
+        interior and keeps its own rows, so one seed gives the same state at
+        any process count.  Not the JAX package's numpy draw."""
         g = torch.Generator().manual_seed(seed)
         return self.from_global_interior(torch.randn(self.global_interior, generator=g))
 
@@ -190,6 +207,41 @@ def _split_to_stacked(domain: Domain, t: torch.Tensor, local) -> torch.Tensor:
     return t.expand(*domain.mesh.axis_sizes, *local)
 
 
+def _own_rows(domain: Domain, x: torch.Tensor) -> torch.Tensor:
+    """This process's rows of a whole-mesh ``(*mesh_shape, *local)`` array:
+    the array itself in one process, ``(local_size, *local)`` in coordinate
+    order on a grid."""
+    mesh = domain.mesh
+    if mesh.processes == 1:
+        return x
+    coords = [mesh.coords(c) for c in mesh.local_coords]
+    index = tuple(torch.tensor(col, device=x.device) for col in zip(*coords))
+    return x[index]
+
+
+def _gather_stacked(domain: Domain, x: torch.Tensor) -> torch.Tensor | None:
+    """The whole-mesh ``(*mesh_shape, *local)`` array from every process's
+    rows ``x``: ``x`` itself in one process; on a grid a collective that
+    gathers the rows (as bytes, on the host, over ``torch.distributed``) to
+    process 0, which gets the array on its CPU; the others get ``None``."""
+    mesh = domain.mesh
+    if mesh.processes == 1:
+        return x
+    import torch.distributed as dist
+
+    rows = x.detach().to("cpu", memory_format=torch.contiguous_format)
+    wire = rows.reshape(mesh.local_size, -1).view(torch.uint8)
+    parts = ([torch.empty_like(wire) for _ in range(mesh.processes)]
+             if mesh.process_index == 0 else None)
+    dist.gather(wire, parts, dst=0)
+    if parts is None:
+        return None
+    full = torch.empty((mesh.size, *x.shape[1:]), dtype=x.dtype)
+    for q, part in enumerate(parts):
+        full[list(mesh.coords_of_process(q))] = part.view(x.dtype).view(-1, *x.shape[1:])
+    return full.view(*mesh.axis_sizes, *x.shape[1:])
+
+
 def _merge_from_stacked(domain: Domain, x: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`_split_to_stacked` (rank 0 of unused mesh axes)."""
     names = list(domain.mesh.axis_names)
@@ -209,18 +261,22 @@ def _merge_from_stacked(domain: Domain, x: torch.Tensor) -> torch.Tensor:
 
 def stacked_from_stored(domain: Domain, stored) -> torch.Tensor:
     """JAX stored layout (numpy ``Domain.stored_global``) -> the port's
-    stacked layout on the domain's device."""
+    stacked layout on the domain's device (this process's rows)."""
     t = domain._as_tensor(stored)
     if tuple(t.shape) != domain.stored_global:
         raise ValueError(f"stored {tuple(t.shape)} != {domain.stored_global}")
-    return _split_to_stacked(domain, t, domain.local_ghosted).contiguous()
+    return _own_rows(domain, _split_to_stacked(domain, t, domain.local_ghosted)).contiguous()
 
 
-def stored_from_stacked(domain: Domain, x: torch.Tensor) -> np.ndarray:
+def stored_from_stacked(domain: Domain, x: torch.Tensor) -> np.ndarray | None:
     """The port's stacked layout -> the JAX stored layout as host numpy
-    (bf16 comes back as f32, which holds it exactly)."""
+    (bf16 comes back as f32, which holds it exactly).  On a grid, every
+    process calls it and process 0 gets the array, the others ``None``."""
     if tuple(x.shape) != domain.stacked_shape:
         raise ValueError(f"stacked {tuple(x.shape)} != {domain.stacked_shape}")
+    x = _gather_stacked(domain, x)
+    if x is None:
+        return None
     t = _merge_from_stacked(domain, x)
     return t.float().cpu().numpy() if t.dtype == torch.bfloat16 else t.cpu().numpy()
 
@@ -231,7 +287,8 @@ def reference_exchange(domain: Domain, interior) -> torch.Tensor:
     Along each decomposed axis (chunk ``c``, halo ``h``) rank ``i`` holds
     global indices ``(i*c - h) .. (i*c + c + h)`` wrapped periodically; the
     whole layout is the tensor product of those per-axis index maps.  Runs
-    on the domain's device (the interior may be numpy or a tensor).
+    on the domain's device (the interior may be numpy or a tensor); on a
+    grid it gives this process's rows.
     """
     out = domain._as_tensor(interior)
     h = domain.halo
@@ -244,7 +301,7 @@ def reference_exchange(domain: Domain, interior) -> torch.Tensor:
             dtype=torch.int64, device=domain.device,
         )
         out = torch.index_select(out, axis, idx)
-    return _split_to_stacked(domain, out, domain.local_ghosted).contiguous()
+    return _own_rows(domain, _split_to_stacked(domain, out, domain.local_ghosted)).contiguous()
 
 
 # ---------------------------------------------------------------------------

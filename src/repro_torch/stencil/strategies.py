@@ -108,12 +108,13 @@ class StrategyConfig:
 
 class _Step:
     """One exchange(+update) iteration on prebuilt tables: ``prepared`` is
-    the :class:`PreparedExchange` a plan exposes."""
+    the :class:`PreparedExchange` a plan exposes; ``capturable`` is its
+    transport's declaration, which the plan reads."""
 
-    def __init__(self, prepared: PreparedExchange, ranks: int,
-                 update_fn: UpdateFn | None, donate: bool):
+    def __init__(self, prepared: PreparedExchange, update_fn: UpdateFn | None, donate: bool):
         self.prepared = prepared
-        self.ranks = ranks
+        self.ranks = prepared.ranks
+        self.capturable = prepared.capturable
         self.update_fn = update_fn
         self.donate = donate
 
@@ -132,9 +133,9 @@ class _OverlapStep(_Step):
     update; the two driver-owned buffers alternate from step to step, so
     the caller's own input is never written either."""
 
-    def __init__(self, prepared, ranks, update_fn, example: torch.Tensor,
+    def __init__(self, prepared, update_fn, example: torch.Tensor,
                  array_axes: tuple[int, ...], halo: int):
-        super().__init__(prepared, ranks, update_fn, donate=False)
+        super().__init__(prepared, update_fn, donate=False)
         self.bufs = (torch.empty_like(example), torch.empty_like(example))
         self.array_axes, self.halo = array_axes, halo
         #: a captured plan replays one graph a parity, each reading one
@@ -221,10 +222,13 @@ class ExchangeStrategy(abc.ABC):
 
     # -- schedule ----------------------------------------------------------
     def _local_block_shape(self, example_shape) -> tuple[int, ...]:
-        """Per-rank ghosted block shape of a stacked example."""
-        m = len(self.mesh.axis_sizes)
-        if tuple(example_shape[:m]) != self.mesh.axis_sizes or len(example_shape) != m + self.ndim:
-            raise ValueError(f"expected (*{self.mesh.axis_sizes}, <{self.ndim} local dims>), "
+        """Per-rank ghosted block shape of a stacked example (this
+        process's rows: ``(*mesh_shape, ...)``, or ``(local_size, ...)`` on
+        a grid)."""
+        lead = self.mesh.stacked_dims
+        m = len(lead)
+        if tuple(example_shape[:m]) != lead or len(example_shape) != m + self.ndim:
+            raise ValueError(f"expected (*{lead}, <{self.ndim} local dims>), "
                              f"got {tuple(example_shape)}")
         return tuple(example_shape[m:])
 
@@ -246,8 +250,7 @@ class ExchangeStrategy(abc.ABC):
         )
 
     def _build_step(self, example: torch.Tensor) -> _Step:
-        return _Step(self._prepare(example), self.mesh.size, self.update_fn,
-                     self.config.donate)
+        return _Step(self._prepare(example), self.update_fn, self.config.donate)
 
     def scheduled_collectives(self, example: torch.Tensor) -> int:
         """Rank gathers one step launches (one per coalesced neighbor)."""
@@ -442,8 +445,8 @@ class OverlapStrategy(PersistentStrategy):
 
     def _build_step(self, example: torch.Tensor) -> _Step:
         spec = self.build_spec()
-        return _OverlapStep(self._prepare(example), self.mesh.size, self.update_fn,
-                            example, spec.array_axes, spec.halo)
+        return _OverlapStep(self._prepare(example), self.update_fn, example,
+                            spec.array_axes, spec.halo)
 
 
 # ---------------------------------------------------------------------------
@@ -533,7 +536,9 @@ class AutoStrategy(ExchangeStrategy):
         """One timed calibration run of a candidate (init, warmup, barrier,
         timed cycles) on a copy of the example, through a spec stamped
         ``selected_by="calibration"``, the stamp the resolved driver uses,
-        so the winner's plan key matches and its plan is reused."""
+        so the winner's plan key matches and its plan is reused.  On a grid
+        every process takes process 0's time (``torch.distributed.
+        broadcast``), as the JAX package broadcasts it."""
         drv = make_driver(
             self._candidate_config(cand), self.mesh,
             lambda: self._spec_builder().with_(selected_by="calibration"),
@@ -550,6 +555,14 @@ class AutoStrategy(ExchangeStrategy):
                 x = drv.step(x)
             drv.wait(x)
             us = (time.perf_counter() - t0) / autotune.PROBE_CYCLES * 1e6
+            if self.mesh.processes > 1:
+                # every process must adopt rank 0's time, or the SPMD
+                # processes could pick different winners and deadlock
+                import torch.distributed as dist
+
+                t = torch.tensor([us], dtype=torch.float64)
+                dist.broadcast(t, src=0)
+                us = float(t)
         finally:
             drv.free()  # the shared probe cache keeps the plan initialized
         self._keep_fastest_probe(drv, example, us)
@@ -578,7 +591,8 @@ class AutoStrategy(ExchangeStrategy):
         geo = self._spec_builder()  # geometry only: axes, halo, topology
         candidates = self._candidates(example.dtype)
         axis_names = self.mesh.axis_names
-        node_size = default_node_size(self.mesh.size)
+        # on a grid a node is a process
+        node_size = default_node_size(self.mesh.size, self.mesh.processes)
         node_of = mesh_node_ids(self.mesh, node_size)
         block = self._local_block_shape(tuple(example.shape))
         # the JAX package's stored global shape: blocks side by side

@@ -2,10 +2,11 @@
 ``src/repro/stencil/sweep.py``).
 
 The paper sweeps *process count*, *thread count* and *message size* over
-Comb's exchange strategies.  The port's analogues, on one card:
+Comb's exchange strategies.  The port's analogues:
 
 * **virtual rank count**    (process count)  — the ranks of a
-  :class:`~repro_torch.core.mesh.VirtualMesh`, all stacked on the device;
+  :class:`~repro_torch.core.mesh.VirtualMesh`, stacked on the device of
+  one process, or of each of ``processes`` processes of a grid;
 * **partition count**       (thread count)   — ``StrategyConfig.n_parts``;
 * **message size**          — the domain's face-slab bytes, varied through
   ``global_interior``;
@@ -27,11 +28,14 @@ Every cell measures the requested strategies through
 
 Where the port differs from the JAX sweep on purpose:
 
-* rank counts run in this process, one after the other (a virtual mesh has
-  no device count fixed at start-up, so no subprocess per count), and the
-  card's cache is emptied between counts;
-* ``processes > 1`` raises :class:`NotImplementedError`: multi-process
-  grids are not ported yet.  Records stamp ``process_count: 1``;
+* with ``processes == 1`` rank counts run in this process, one after the
+  other (a virtual mesh has no device count fixed at start-up, so no
+  subprocess per count), and the card's cache is emptied between counts;
+* with ``processes > 1`` each rank count boots as a grid of ``processes``
+  worker processes (:func:`repro_torch.launch.stencil.launch_grid`), each
+  stacking ``n // processes`` ranks, its cells moving through the
+  ``multihost`` transport (``loopback`` cannot cross processes); rank 0
+  prints the records, which stamp ``process_count`` and ``is_multihost``;
 * ``device=`` (the CLI's ``--device``, default ``cuda``) picks the card or
   the CPU; the config block stamps the device's name and the torch and
   CUDA versions.
@@ -72,6 +76,7 @@ from repro_torch.launch.mapping import (
     default_node_size,
     get_mapping,
 )
+from repro_torch.launch.stencil import process_grid
 from repro_torch.stencil.comb import comb_measure, result_label
 from repro_torch.stencil.domain import Domain
 from repro_torch.stencil.strategies import (
@@ -97,10 +102,6 @@ RECORD_KEYS = (
     "init_us", "n_cycles", "repeats", "checksum", "speedup_vs_baseline",
     "device",
 )
-
-#: what a multi-process request is told
-NOT_PORTED = ("multi-process sweeps (processes > 1) are not ported yet: they wait for "
-              "launch/stencil.py and the torch-dist transport (ROADMAP.md Queue 1)")
 
 
 def mesh_shape_for(
@@ -167,7 +168,7 @@ class SweepConfig:
     #: ranks per modeled node for the hop-locality tally; 0 = derive via
     #: repro_torch.launch.mapping.default_node_size (a two-node split)
     node_size: int = 0
-    #: grid processes per cell; only 1 is ported
+    #: processes of the grid each rank count boots as (1 = in this process)
     processes: int = 1
     #: 1 = the paper's 1-D rank row; 2 = an (n/2, 2) torus over the first
     #: two array axes (edges and corners exist, so coalescing has chains)
@@ -192,8 +193,13 @@ class SweepConfig:
             raise ValueError(f"coalesce_modes {self.coalesce_modes}")
         if self.processes < 1 or self.node_size < 0:
             raise ValueError((self.processes, self.node_size))
-        if self.processes > 1:
-            raise NotImplementedError(NOT_PORTED)
+        if self.processes > 1 and self.transport == "loopback":
+            raise ValueError(f"transport {self.transport!r} cannot cross processes; a grid of "
+                             f"{self.processes} needs transport='multihost'")
+        for n in self.device_counts:
+            if n % self.processes:
+                raise ValueError(f"device count {n} not divisible into {self.processes} "
+                                 f"process ranks")
         canon = tuple(canonical_mapping(m) for m in self.mappings)
         if len(set(canon)) != len(canon):
             raise ValueError(f"duplicate mapping cells after alias resolution: {self.mappings}")
@@ -234,10 +240,15 @@ def _size_records(
     too, each mapping on a mesh with its placement, all against the same
     baseline run (the first mapping's first-packer first-mode baseline
     strategy)."""
+    n_proc, rank = process_grid()
+    if n_proc != config.processes:
+        raise RuntimeError(f"the config asks for {config.processes} processes, this grid has "
+                           f"{n_proc} (run_sweep boots the grid)")
     mesh_shape = mesh_shape_for(n_devices, config.mesh_ndim, warn=True)
     axis_names = ("px", "py")[: len(mesh_shape)]
     axis_sizes = dict(zip(axis_names, mesh_shape))
-    node_size = config.node_size or default_node_size(n_devices)
+    # on a grid a node is a process
+    node_size = config.node_size or default_node_size(n_devices, n_proc)
     base_us: float | None = None
     # message tables depend on (strategy, n_parts) only, never on the
     # mapping: derived once, re-classified under each mapping's node vector
@@ -245,7 +256,8 @@ def _size_records(
     records: list[dict] = []
     for mapping in config.mappings:
         placement = get_mapping(mapping).placement(mesh_shape, node_size)
-        mesh = make_mesh(mesh_shape, axis_names, device=device, placement=placement)
+        mesh = make_mesh(mesh_shape, axis_names, device=device, placement=placement,
+                         processes=n_proc, process_index=rank)
         domain = Domain(mesh, tuple(size), axis_names + (None,) * (len(size) - len(mesh_shape)),
                         halo=config.halo)
         strat_configs = []
@@ -290,8 +302,8 @@ def _size_records(
                 "bench": "stencil_sweep",
                 "schema_version": SCHEMA_VERSION,
                 "n_devices": n_devices,
-                "process_count": 1,
-                "is_multihost": False,
+                "process_count": n_proc,
+                "is_multihost": n_proc > 1,
                 "node_size": node_size,
                 "intra_node_sends": loc.intra_sends,
                 "inter_node_sends": loc.inter_sends,
@@ -310,7 +322,9 @@ def sweep_cells(
     config: SweepConfig, *, n_devices: int | None = None, device=None
 ) -> list[dict]:
     """The partition-count x size grid at ONE rank count (``n_devices``,
-    default the config's largest) on ``device`` (default the card)."""
+    default the config's largest) on ``device`` (default the card), in
+    this process; with ``config.processes > 1`` every process of the grid
+    calls it (as :func:`run_sweep`'s workers do)."""
     n = n_devices or max(config.device_counts)
     for size in config.sizes:
         _assert_decomposable(size, mesh_shape_for(n, config.mesh_ndim), config.halo,
@@ -321,13 +335,27 @@ def sweep_cells(
     return records
 
 
-def run_sweep(config: SweepConfig, *, device=None) -> list[dict]:
-    """The full §VI grid: every rank count in this process, one after the
-    other, the card's cache emptied between counts."""
+def run_sweep(config: SweepConfig, *, device=None, timeout: float = 1200.0) -> list[dict]:
+    """The full §VI grid.  With ``config.processes == 1`` every rank count
+    runs in this process, one after the other, the card's cache emptied
+    between counts.  With ``processes > 1`` each rank count boots as a
+    grid of that many worker processes (:func:`repro_torch.launch.stencil.
+    launch_grid`, ``timeout`` seconds each) that run :func:`sweep_cells`
+    SPMD, ``n // processes`` ranks each; rank 0 prints the records."""
     dev = resolve_device(device)
     records: list[dict] = []
     for n in config.device_counts:
         sub = dataclasses.replace(config, device_counts=(n,))
+        if config.processes > 1:
+            from repro_torch.launch.stencil import launch_grid
+
+            stdout = launch_grid(
+                [sys.executable, "-m", "repro_torch.stencil.sweep", "--worker", sub.to_json(),
+                 "--device", dev.type],
+                processes=config.processes, timeout=timeout,
+            )
+            records.extend(json.loads(stdout.strip().splitlines()[-1]))
+            continue
         records.extend(sweep_cells(sub, n_devices=n, device=dev))
         if dev.type == "cuda":
             torch.cuda.empty_cache()
@@ -561,8 +589,8 @@ def config_block(config: SweepConfig, *, device=None, smoke: bool = False) -> di
         "device": device_name(resolve_device(device)),
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
-        "process_count": 1,
-        "is_multihost": False,
+        "process_count": config.processes,
+        "is_multihost": config.processes > 1,
         # the mesh each rank count ran on (a 2-D request can degrade to a
         # 1-D row, see mesh_shape_for)
         "effective_mesh_shapes": {
@@ -574,6 +602,9 @@ def config_block(config: SweepConfig, *, device=None, smoke: bool = False) -> di
 def main(argv: Sequence[str] | None = None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--worker", metavar="CONFIG_JSON",
+                    help="(internal) one rank of a --processes grid: run one rank count's "
+                         "cells and print the records from rank 0")
     ap.add_argument("--out", default="BENCH_torch_stencil_sweep.json",
                     help="output path (must match BENCH_*.json)")
     ap.add_argument("--device", default="cuda",
@@ -607,13 +638,23 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap.add_argument("--check-threshold", type=float, default=0.25,
                     help="allowed fractional speedup regression for --check")
     ap.add_argument("--processes", type=int, default=1,
-                    help="grid processes per cell; only 1 is ported")
+                    help="boot every rank count as a grid of N processes (each stacking "
+                         "n/N ranks; transport multihost; rank 0 gathers the records)")
+    ap.add_argument("--timeout", type=float, default=1200.0,
+                    help="wall-clock limit of each rank count's grid (seconds)")
     args = ap.parse_args(argv)
 
+    if args.worker:
+        from repro_torch.launch.stencil import maybe_initialize_from_env
+
+        rank = maybe_initialize_from_env()
+        config = SweepConfig.from_json(args.worker)
+        records = sweep_cells(config, n_devices=config.device_counts[0], device=args.device)
+        if rank == 0:
+            print(json.dumps(records))
+        return
     if args.processes < 1:
         ap.error(f"--processes must be >= 1, got {args.processes}")
-    if args.processes > 1:
-        raise NotImplementedError(NOT_PORTED)
     if not is_bench_path(args.out):
         ap.error(f"--out must be named BENCH_*.json, got {args.out!r}")
 
@@ -645,11 +686,17 @@ def main(argv: Sequence[str] | None = None) -> None:
         baseline = SweepConfig.__dataclass_fields__["baseline"].default
         strategies = tuple(dict.fromkeys((baseline,) + names))
 
+    grid = (dict(processes=args.processes, transport="multihost") if args.processes > 1
+            else {})
     if args.smoke:
-        config = smoke_config(4, packers=(args.packer,) if args.packer else None,
-                              coalesce_modes=coalesce_modes, mappings=mappings,
-                              strategies=strategies)
-        records = sweep_cells(config, n_devices=4, device=device)
+        # 2 ranks a process on a grid (4 in one process)
+        n = 2 * args.processes if args.processes > 1 else 4
+        config = dataclasses.replace(
+            smoke_config(n, packers=(args.packer,) if args.packer else None,
+                         coalesce_modes=coalesce_modes, mappings=mappings,
+                         strategies=strategies), **grid)
+        records = (run_sweep(config, device=device, timeout=args.timeout) if grid
+                   else sweep_cells(config, n_devices=n, device=device))
     else:
         config = SweepConfig()
         if args.fast:
@@ -663,7 +710,8 @@ def main(argv: Sequence[str] | None = None) -> None:
             config = dataclasses.replace(config, mappings=mappings)
         if strategies is not None:
             config = dataclasses.replace(config, strategies=strategies)
-        records = run_sweep(config, device=device)
+        config = dataclasses.replace(config, **grid)
+        records = run_sweep(config, device=device, timeout=args.timeout)
     write_bench_json(records, args.out,
                      config=config_block(config, device=device, smoke=args.smoke))
     for row in summarize(records):

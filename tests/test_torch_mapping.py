@@ -12,7 +12,21 @@ package.
   for field; blocked strictly lowers the inter-node sends on the two-node
   (2, 4) grid, and every mapping's exchange stays bitwise-equal to
   ``reference_exchange``.
+* Under 2 and 4 processes a mapping puts each coordinate in the process
+  that JAX's permuted device list gives it (``VirtualMesh.process_of``,
+  ``local_coords``).
+* ``cuda``-marked (run on the card, skipped here): a 2-process grid on one
+  card moves every strategy x packer ``slice``/``cuda`` x coalesce cell
+  through the ``multihost`` transport bitwise-equal to a one-process
+  ``loopback`` exchange of the same block, on each process's rows, with
+  its plans eager and the pack kernels launched in both processes.
 """
+
+import json
+import math
+import sys
+import textwrap
+import types
 
 import jax
 import numpy as np
@@ -172,3 +186,94 @@ def test_exchange_on_a_placed_mesh_equals_reference(name):
         got = drv.wait(drv.step(d.from_global_interior(interior)))
         drv.free()
         assert torch.equal(got, want), strategy
+
+
+@pytest.mark.parametrize("processes", [2, 4])
+@pytest.mark.parametrize("shape", [(2, 2), (4, 2), (2, 4), (8,)], ids=str)
+@pytest.mark.parametrize("name", j_mapping.available_mappings())
+def test_a_grid_mesh_holds_the_coordinates_of_jaxs_process_devices(name, shape, processes):
+    """JAX places device ``placement[c]`` at coordinate ``c``, and a device
+    belongs to process ``id // local``; the port's process stacks exactly
+    those coordinates, in coordinate order."""
+    n = math.prod(shape)
+    local = n // processes
+    devices = [types.SimpleNamespace(id=i, process_index=i // local) for i in range(n)]
+    placed = j_mapping.get_mapping(name).permute_devices(devices, shape, local)
+    placement = t_mapping.get_mapping(name).placement(shape, local)
+    names = ("px", "py")[:len(shape)]
+    held = []
+    for q in range(processes):
+        mesh = make_mesh(shape, names, device="cpu", placement=placement,
+                         processes=processes, process_index=q)
+        assert mesh.local_coords == tuple(c for c, d in enumerate(placed) if d.process_index == q)
+        assert [mesh.process_of(c) for c in range(n)] == [d.process_index for d in placed]
+        assert mesh.local_size == local and mesh.stacked_dims == (local,)
+        held += mesh.local_coords
+    assert sorted(held) == list(range(n))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the card; see chip_smoke.py)")
+    return torch.device("cuda")
+
+
+_CARD_GRID_PROG = textwrap.dedent("""
+    import json, sys
+    import torch
+    from repro_torch.launch.stencil import maybe_initialize_from_env
+    rank = maybe_initialize_from_env()
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.stencil import Domain, StrategyConfig, available_strategies, make_driver
+    shape, names, size, axes = (4, 2), ("pz", "py"), (32, 16, 8), ("pz", "py", None)
+    one = Domain(make_mesh(shape, names, device="cuda"), size, axes)
+    grid = Domain(make_mesh(shape, names, device="cuda", processes=2, process_index=rank),
+                  size, axes)
+    rows = list(grid.mesh.local_coords)
+    x1, xg = one.random(0), grid.random(0)
+    cells = [[torch.equal(x1.reshape(8, *one.local_ghosted)[rows], xg)]]
+    for s in available_strategies():
+        for p in ("slice", "cuda"):
+            for c in (True, False):
+                cfg = StrategyConfig(name=s, packer=p, coalesce=c,
+                                     n_parts=4 if s == "partitioned" else 1)
+                d1 = make_driver(cfg, one.mesh, one.halo_spec, ndim=3)
+                dg = make_driver(cfg.with_(transport="multihost"), grid.mesh, grid.halo_spec,
+                                 ndim=3)
+                a, b = x1.clone(), xg.clone()
+                for _ in range(3):
+                    a = d1.step(a)
+                a = d1.wait(a).reshape(8, *one.local_ghosted)[rows]
+                _build.reset_launches()
+                for _ in range(3):
+                    b = dg.step(b)
+                b = dg.wait(b)
+                plan = getattr(dg, "plan", None)
+                cells.append([s, p, c, torch.equal(a, b), plan is not None and plan.captured,
+                              dict(_build.LAUNCHES)])
+                d1.free()
+                dg.free()
+    with open(sys.argv[1] + f"/rank{rank}.json", "w") as f:
+        json.dump(cells, f)
+""")
+
+
+@pytest.mark.cuda
+def test_multihost_on_the_card_equals_loopback_bitwise(cuda, tmp_path):
+    from repro_torch.launch.stencil import launch_grid
+
+    prog = tmp_path / "card_grid.py"
+    prog.write_text(_CARD_GRID_PROG)
+    launch_grid([sys.executable, str(prog), str(tmp_path)], processes=2, timeout=300.0)
+    for r in range(2):
+        (start,), *cells = json.loads((tmp_path / f"rank{r}.json").read_text())
+        assert start, f"rank {r}: Domain.random's rows differ from the one-process draw"
+        assert len(cells) == 5 * 2 * 2
+        for s, p, c, equal, captured, launched in cells:
+            assert equal, (r, s, p, c)
+            assert not captured, (r, s, p, c)  # the grid's plans run eagerly
+            want = ({"copy_convert", "gather_pack"} if c else {"copy_convert"}) if p == "cuda" \
+                else set()
+            assert {k for k, v in launched.items() if v} == want, (r, s, p, c, launched)

@@ -11,8 +11,12 @@
 * ``summarize``, ``regression_failures``, ``read/write_bench_json`` and the
   ``SweepConfig`` JSON round trip give JAX's outputs on the same records.
 * The CLI writes a readable file on ``--device cpu``, raises without a card
-  otherwise, and refuses ``--processes 2``; so does the torch heat3d
+  otherwise, and refuses ``--processes 0``; so does the torch heat3d
   example, which verifies its ``auto`` cell against the numpy oracle.
+* ``SweepConfig(processes=2)`` on a tiny grid (``slow``: it boots two
+  worker processes) gives records with JAX's keys plus ``device``,
+  ``process_count: 2``, the ``multihost`` transport, and the exact cells'
+  checksums of the same grid in one process.
 """
 
 import dataclasses
@@ -137,8 +141,15 @@ def test_config_validates_like_jax():
         t_sweep.SweepConfig(device_counts=(8,), sizes=((12, 6),))
     with pytest.raises(ValueError, match="baseline cannot be autotuned"):
         t_sweep.SweepConfig(strategies=("auto",), baseline="auto")
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(ValueError, match="not divisible into 3 process ranks"):
+        t_sweep.SweepConfig(processes=3, device_counts=(4,), transport="multihost")
+    with pytest.raises(AssertionError, match="not divisible into 3 process ranks"):
+        j_sweep.SweepConfig(processes=3, device_counts=(4,), transport="multihost")
+    with pytest.raises(ValueError, match="cannot cross processes"):
         t_sweep.SweepConfig(processes=2, device_counts=(4,))
+    grid = t_sweep.SweepConfig(processes=2, device_counts=(4,), sizes=((16, 8),),
+                               transport="multihost")
+    assert t_sweep.SweepConfig.from_json(grid.to_json()) == grid
     assert t_sweep.SweepConfig(mappings=("rb",)).mappings == ("recursive-bisection",)
     assert t_sweep.smoke_config(4, strategies=("standard",)).strategies == ("standard",)
 
@@ -175,8 +186,8 @@ def test_cli_writes_a_readable_file_and_refuses_what_is_not_ported(tmp_path, cap
     assert len(recs) == 2 * 6 and {r["packer"] for r in recs} == {"cuda"}
     assert config["device"] == "cpu" and config["smoke"] is True
     assert "records ->" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        t_sweep.main(["--smoke", "--device", "cpu", "--processes", "2", "--out", str(out)])
+    with pytest.raises(SystemExit):
+        t_sweep.main(["--smoke", "--device", "cpu", "--processes", "0", "--out", str(out)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             t_sweep.main(["--smoke", "--out", str(out)])
@@ -206,3 +217,23 @@ def test_heat3d_example_verifies_its_auto_cell(tmp_path, monkeypatch, capsys):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             example.main(["--size", "16", "--cycles", "1"])
+
+
+@pytest.mark.slow
+def test_two_process_sweep_records_carry_the_jax_keys(records):
+    """JAX ``tests/stencil/test_sweep.py``'s multihost config: each rank
+    count boots as a 2-process grid through the ``multihost`` transport."""
+    config = dataclasses.replace(t_sweep.smoke_config(4), processes=2, transport="multihost",
+                                 n_cycles=1, part_counts=(2,), mappings=("row-major",))
+    recs = t_sweep.run_sweep(config, device="cpu", timeout=120.0)
+    assert len(recs) == 2 * 4 * 5  # coalesce x packers x cells
+    for r in recs:
+        assert set(r) == set(t_sweep.RECORD_KEYS), set(r) ^ set(t_sweep.RECORD_KEYS)
+        assert r["process_count"] == 2 and r["is_multihost"] and r["transport"] == "multihost"
+        assert r["device"] == "cpu" and r["node_size"] == 2
+    # the state is drawn from one seed at any process count, and the
+    # checksum is summed over both processes: the one-process grid's
+    one = {r["checksum"] for r in records if r["packer"] in ("slice", "cuda")}
+    assert {r["checksum"] for r in recs if r["packer"] in ("slice", "cuda")} == one
+    block = t_sweep.config_block(config, device="cpu")
+    assert block["process_count"] == 2 and block["is_multihost"] is True
