@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU: the halo
-exchange (heat3d), its §VI sweep and its multi-process grid, llama3-8b
-serving and rwkv6-1.6b serving.
+exchange (heat3d), its §VI sweep, its multi-process grid and its elastic
+recovery, llama3-8b serving and rwkv6-1.6b serving.
 
     python3 chip_smoke.py
 
@@ -151,6 +151,35 @@ F. The paper's process axis on the one card: (1) a grid of 2 processes
    (copied to the repository root and committed), its exact cells'
    checksums within 1e-12 of the one-process grid's.  A failed rank fails
    the run.
+G. Elastic recovery (``repro_torch.launch.elastic``) at the heat3d size,
+   ``(1024, 1024, 512)`` f32 on the runner's 1-axis mesh ``("px",)`` (8
+   ranks: blocks of ``(130, 1024, 512)``, faces of 2 MiB, a 2 GiB
+   checkpoint, ``keep=3``, each leg's directory under ``build/`` deleted
+   after it), packer ``cuda``, coalesced, ``persistent`` (in one process
+   on its CUDA graph), 8 steps, every leg's final interior bitwise-equal
+   to the 1-rank oracle (``checkpoint_every=0``); launch counts zeroed
+   before each leg and read after it, ``copy_convert`` and ``gather_pack``
+   launched in every leg: (G1) 8 ranks, a checkpoint every 4 steps, a
+   ``"mid-exchange"`` failure at step 5 (the step's graph replay still in
+   flight), 4 survivors resume from step 4, the dead plan counted as an
+   invalidation; (G2) the same in ``recovery_mode="in-grid"``, every
+   membership operation through a live ``MembershipServer`` /
+   ``MembershipClient`` on 127.0.0.1, an unrelated plan warmed beforehand
+   kept, ``warm_ranks == 4``, ``plan_cache_inits`` growing; (G3) 4 ranks
+   grow to 8 at step 3 with no checkpoint, the live state moved by
+   ``reshard_state`` on the device; (G4) ``launch_grid(check=False)``
+   runs 2 processes x 4 ranks (``multihost``, ``max_replans=0``, plans
+   eager), process 1 fails mid-exchange at step 4 with a checkpoint every
+   3 steps, the grid must die with step 3's commit intact, then one
+   process with 4 ranks resumes from it on its graph.  After each recovery
+   the dead plan's memory must have come back (``memory_allocated`` at
+   the raise, once released, and after the first step on the new mesh).
+   Prints each leg's events (``replan_us``, ``init_us`` with the capture,
+   invalidations, epoch), checkpoint save and restore seconds, the time
+   to recover, ``join_us``, ``warm_ranks``, the plan-cache counters and
+   the launches; writes the four ``bench_record()`` rows with the card's
+   name and power limit to ``chiprun_out/BENCH_torch_elastic.json``
+   (copied to the repository root and committed).
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -228,6 +257,15 @@ GRID_REF_SIZE = (64, 64, 64)
 P2_PARTS = (1, 4)
 P2_CYCLES, P2_REPEATS = 50, 3
 GRID_TIMEOUT = 600.0
+#: phase G: the elastic runner's steps, the failing step and checkpoint
+#: interval of each leg, and the bound of G4's grid (G1, G2: 8 ranks lose
+#: half mid-exchange at step 5 and resume from step 4; G3: 4 ranks grow to
+#: 8 at step 3; G4: process 1 of 2 fails at step 4, step 3's commit stays)
+ELASTIC_STEPS = 8
+ELASTIC_FAIL, ELASTIC_EVERY = 5, 4
+JOIN_STEP = 3
+GRID_FAIL, GRID_EVERY = 4, 3
+ELASTIC_TIMEOUT = 600.0
 
 
 def fail(msg: str) -> None:
@@ -1333,6 +1371,255 @@ def grid_phase(torch, dev, out_dir: pathlib.Path) -> dict:
     return out
 
 
+def elastic_config(**kw):
+    """Phase G's cell: the heat3d size on the runner's 1-axis mesh
+    ``("px",)``, packer ``cuda``, coalesced, ``persistent``."""
+    from repro_torch.launch.elastic import ElasticConfig
+
+    return ElasticConfig(global_interior=GLOBAL_INTERIOR, n_steps=ELASTIC_STEPS,
+                         strategy="persistent", packer="cuda", coalesce=True, **kw)
+
+
+def elastic_worker(ckpt_dir: str, out_dir: str) -> int:
+    """One process of leg G4's grid (``python3 chip_smoke.py
+    --elastic-worker CKPT OUT``, booted by :func:`elastic_phase` through
+    ``launch_grid``): 4 ranks of an 8-rank mesh on ``cuda:0``, transport
+    ``multihost``, ``max_replans=0``; process 1 fails mid-exchange at step
+    ``GRID_FAIL``.  Whatever ends its run, it writes its launches and
+    events to ``OUT/phase_g_rank<r>.json``; a run that ends cleanly exits
+    17."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.stencil import maybe_initialize_from_env
+
+    rank = maybe_initialize_from_env()
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch.elastic import ElasticStencilRunner
+    from repro_torch.train.fault_tolerance import FailureInjector
+
+    _build.reset_launches()
+    runner = ElasticStencilRunner(
+        elastic_config(checkpoint_every=GRID_EVERY, transport="multihost", max_replans=0),
+        ckpt_dir, device=torch.device("cuda", torch.cuda.current_device()),
+        devices=list(range(8)),
+        injector=FailureInjector(fail_at_steps=(GRID_FAIL,) if rank == 1 else (),
+                                 phases=("mid-exchange",)))
+    try:
+        runner.run()
+    finally:
+        pathlib.Path(out_dir, f"phase_g_rank{rank}.json").write_text(json.dumps({
+            "rank": rank, "launches": dict(_build.LAUNCHES),
+            "events": [dataclasses.asdict(e) for e in runner.events],
+            "save_s": runner.save_seconds, "checkpoint_step": runner.checkpoint_step,
+            "captured": [p.captured for p in runner.cache._plans.values()]}))
+    print(f"rank {rank}: survived a run that should have died", flush=True)
+    return 17
+
+
+def elastic_phase(torch, dev, out_dir: pathlib.Path) -> dict:
+    """Phase G: elastic recovery at the heat3d size (see the module
+    docstring)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.launch.elastic import ElasticStencilRunner
+    from repro_torch.launch.membership import MembershipClient, MembershipServer, MembershipService
+    from repro_torch.launch.stencil import launch_grid
+    from repro_torch.stencil import Domain, StrategyConfig, make_driver
+    from repro_torch.train import checkpoint
+    from repro_torch.train.fault_tolerance import FailureInjector
+
+    card, power = (part.strip() for part in nvidia_smi_line().split(","))
+    # an 8-rank block set: what a dead 8-rank plan must give back
+    block_bytes = 8 * (GLOBAL_INTERIOR[0] // 8 + 2) * math.prod(GLOBAL_INTERIOR[1:]) * 4
+    clock, rows = {}, []
+    t0 = time.perf_counter()
+    oracle = ElasticStencilRunner(elastic_config(checkpoint_every=0), None, device=dev,
+                                  devices=[0]).run()
+    clock["oracle_s"] = time.perf_counter() - t0
+    want = oracle.final_interior
+    if want.shape != GLOBAL_INTERIOR or not np.isfinite(want).all():
+        fail(f"elastic oracle: shape {want.shape}, finite {np.isfinite(want).all()}")
+    print(f"elastic oracle: 1 rank, {ELASTIC_STEPS} steps at {GLOBAL_INTERIOR} f32 in "
+          f"{clock['oracle_s']:.1f} s (init_us with the capture "
+          f"{oracle.events[0].init_us:.0f})", flush=True)
+    del oracle
+
+    def ckpt_dir(leg):
+        d = ROOT / "build" / f"elastic_{leg}"
+        shutil.rmtree(d, ignore_errors=True)
+        return d
+
+    def check(leg, result, launches, causes, ranks):
+        if [e.cause for e in result.events] != causes or [e.n_devices for e in result.events] != ranks:
+            fail(f"{leg}: events {result.events}")
+        if result.steps != ELASTIC_STEPS or not np.array_equal(result.final_interior, want):
+            fail(f"{leg}: {result.steps} steps; final interior bitwise-equal to the 1-rank "
+                 f"oracle: {np.array_equal(result.final_interior, want)}")
+        if launches.get("copy_convert", 0) <= 0 or launches.get("gather_pack", 0) <= 0:
+            fail(f"{leg}: launches {launches}")
+        for rec in result.recoveries:
+            # a loss gives the dead plan's block back before the new plan
+            # exists (a JOIN still holds the live copy then; a relaunched
+            # process had nothing to give back); after the first step on
+            # the new mesh one block set is held, not two
+            back = rec.memory_at_raise - rec.memory_released
+            grew = rec.memory_after - rec.memory_at_raise
+            if ((rec.cause not in ("join", "resume") and back < 0.9 * block_bytes)
+                    or grew > 0.1 * block_bytes):
+                fail(f"{leg}: the dead plan's memory did not come back: {rec}")
+
+    def report(leg, result, launches, **extra):
+        row = {"leg": leg, **result.bench_record(), "card": card, "power_limit": power,
+               "events": [dataclasses.asdict(e) for e in result.events],
+               "recoveries": [{k: v for k, v in dataclasses.asdict(r).items() if k != "t_raise"}
+                              for r in result.recoveries],
+               "save_s": result.save_seconds, "launches": launches, **extra}
+        rows.append(row)
+        for e in result.events:
+            print(f"{leg} plan[{e.cause}] step={e.step} ranks={e.n_devices} replan_us="
+                  f"{e.replan_us:.0f} init_us(with the capture)={e.init_us:.0f} invalidated="
+                  f"{e.plan_invalidations} epoch={e.epoch}", flush=True)
+        for r in row["recoveries"]:
+            print(f"{leg} recovery[{r['cause']}] resumed at step {r['step']}: "
+                  f"{r['recover_s']:.3f} s from the raise to the end of the first step on the "
+                  f"new mesh, restore {r['restore_s']:.3f} s; memory_allocated "
+                  f"{r['memory_at_raise'] / 2**30:.3f} GiB at the raise, "
+                  f"{r['memory_released'] / 2**30:.3f} released, "
+                  f"{r['memory_after'] / 2**30:.3f} after", flush=True)
+        print(f"{leg}: save_s {[round(v, 3) for v in result.save_seconds]}, join_us "
+              f"{result.join_us:.0f}, warm_ranks {result.warm_ranks}, plan cache inits/hits/"
+              f"invalidations {result.plan_cache_inits}/{result.plan_cache_hits}/"
+              f"{result.plan_cache_invalidations}, epoch {result.final_epoch}; launches "
+              f"{json.dumps(launches)}; final interior bitwise-equal to the 1-rank oracle",
+              flush=True)
+
+    def fail_at(step):
+        return FailureInjector(fail_at_steps=(step,), phases=("mid-exchange",))
+
+    # -- G1: loss, relaunch recovery -----------------------------------------
+    d = ckpt_dir("g1")
+    runner = ElasticStencilRunner(elastic_config(checkpoint_every=ELASTIC_EVERY), str(d),
+                                  device=dev, devices=list(range(8)),
+                                  injector=fail_at(ELASTIC_FAIL))
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    result = runner.run()
+    clock["g1_s"] = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check("G1", result, launches, ["initial", "rank-loss"], [8, 4])
+    if result.events[1].plan_invalidations != 1 or result.events[1].step != ELASTIC_EVERY:
+        fail(f"G1: events {result.events}")
+    report("G1 loss-relaunch", result, launches)
+    shutil.rmtree(d)
+
+    # -- G2: loss, in-grid recovery over a live membership wire --------------
+    d = ckpt_dir("g2")
+    svc = MembershipService(heartbeat_timeout=ELASTIC_TIMEOUT)
+    with MembershipServer(svc, host="127.0.0.1") as srv:
+        cli = MembershipClient(srv.address, timeout=30.0)
+        runner = ElasticStencilRunner(
+            elastic_config(checkpoint_every=ELASTIC_EVERY, recovery_mode="in-grid",
+                           heartbeat_timeout=ELASTIC_TIMEOUT),
+            str(d), device=dev, devices=list(range(8)), injector=fail_at(ELASTIC_FAIL),
+            membership=cli)
+        # an unrelated plan, warmed beforehand, must stay in the cache
+        small = Domain(make_mesh((2,), ("px",), device=dev), (64, 64, 64), ("px", None, None))
+        warm = make_driver(StrategyConfig(name="persistent", packer="cuda", plan_cache=runner.cache),
+                           small.mesh, small.halo_spec, ndim=3)
+        warm.init(small.random(0))
+        warm.free()
+        warm_keys, inits_before = set(runner.cache.keys()), runner.cache.stats.inits
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        result = runner.run()
+        clock["g2_s"] = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        view = cli.view()
+    check("G2", result, launches, ["initial", "loss-ingrid"], [8, 4])
+    if (not warm_keys <= set(runner.cache.keys()) or result.warm_ranks != 4
+            or result.plan_cache_inits != inits_before + 2 or result.final_epoch != 1
+            or result.events[1].plan_invalidations != 1
+            or (view.epoch, view.cause, len(view.members)) != (1, "loss", 4)):
+        fail(f"G2: warm plan kept {warm_keys <= set(runner.cache.keys())}, warm_ranks "
+             f"{result.warm_ranks}, inits {inits_before} -> {result.plan_cache_inits}, "
+             f"events {result.events}, view {view}")
+    report("G2 loss-ingrid", result, launches, membership=view.to_wire())
+    runner.cache.free_all()
+    shutil.rmtree(d)
+
+    # -- G3: JOIN, 4 -> 8 ranks, live state, no checkpoint -------------------
+    runner = ElasticStencilRunner(elastic_config(checkpoint_every=0, recovery_mode="in-grid"),
+                                  None, device=dev, devices=list(range(4)),
+                                  joins=[(JOIN_STEP, list(range(4, 8)))])
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    result = runner.run()
+    clock["g3_s"] = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check("G3", result, launches, ["initial", "join"], [4, 8])
+    if (result.replans, result.warm_ranks, result.final_epoch, result.checkpoint_step) != (
+            0, 4, 4, None) or result.join_us <= 0:
+        fail(f"G3: {result}")
+    report("G3 join", result, launches)
+
+    # -- G4: a 2-process grid dies; one process resumes on its graph ---------
+    d = ckpt_dir("g4")
+    for r in range(GRID_PROCESSES):
+        (out_dir / f"phase_g_rank{r}.json").unlink(missing_ok=True)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    grid = launch_grid([sys.executable, str(ROOT / "chip_smoke.py"), "--elastic-worker", str(d),
+                        str(out_dir)], processes=GRID_PROCESSES, timeout=ELASTIC_TIMEOUT,
+                       check=False, attempts=1)
+    clock["g4_grid_s"] = time.perf_counter() - t0
+    committed = checkpoint.committed_steps(str(d))
+    if (grid.ok or 17 in grid.returncodes or "SimulatedFailure" not in grid.errs[1]
+            or committed != [GRID_EVERY]):
+        fail(f"G4: grid exit {grid.returncodes}, committed {committed}:\n"
+             + "\n".join(f"--- rank {r} ---\n{e[-3000:]}" for r, e in enumerate(grid.errs)))
+    workers = [json.loads(f.read_text()) for f in sorted(out_dir.glob("phase_g_rank*.json"))]
+    dead = next(w for w in workers if w["rank"] == 1)
+    if (dead["launches"].get("copy_convert", 0) <= 0 or dead["launches"].get("gather_pack", 0) <= 0
+            or any(dead["captured"]) or dead["events"][0]["n_devices"] != 8):
+        fail(f"G4: the failing process's record {dead}")
+    print(f"G4 grid: {GRID_PROCESSES} processes x 4 ranks died in {clock['g4_grid_s']:.1f} s "
+          f"(exit {grid.returncodes}); step {GRID_EVERY}'s commit survived; launches per process "
+          f"{[w['launches'] for w in workers]}, plans eager (captured {dead['captured']}), "
+          f"save_s {[w['save_s'] for w in workers]}", flush=True)
+    t0 = time.perf_counter()
+    runner = ElasticStencilRunner(
+        elastic_config(checkpoint_every=GRID_EVERY, transport="multihost", max_replans=0),
+        str(d), device=dev, devices=list(range(4)))
+    result = runner.run()
+    clock["g4_resume_s"] = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check("G4", result, launches, ["initial"], [4])
+    if (result.events[0].step != GRID_EVERY or [r.cause for r in result.recoveries] != ["resume"]
+            or not all(p.captured for p in runner.cache._plans.values())):
+        fail(f"G4: the resume {result.events} {result.recoveries}")
+    report("G4 grid relaunch", result, launches, grid_s=clock["g4_grid_s"],
+           grid_returncodes=list(grid.returncodes), grid_workers=workers)
+    runner.cache.free_all()
+    shutil.rmtree(d)
+
+    bench = out_dir / "BENCH_torch_elastic.json"
+    bench.write_text(json.dumps({"card": card, "power_limit": power, "torch": torch.__version__,
+                                 "global_interior": list(GLOBAL_INTERIOR), "steps": ELASTIC_STEPS,
+                                 "clock": clock, "records": rows}, indent=1) + "\n")
+    print(f"elastic: 4 legs bitwise-equal to the 1-rank oracle at {GLOBAL_INTERIOR} -> "
+          f"{bench.relative_to(ROOT)}; phase G clock "
+          f"{json.dumps({k: round(v, 1) for k, v in clock.items()})}", flush=True)
+    return {"records": rows, "clock": clock}
+
+
 def main() -> int:
     import contextlib
     import io
@@ -1847,6 +2134,10 @@ def main() -> int:
 
     # -- F. the process axis: a 2-process grid on the card -------------------
     record["grid"] = grid_phase(torch, dev, out_dir)
+    torch.cuda.empty_cache()
+
+    # -- G. elastic recovery at the heat3d size ---------------------------------
+    record["elastic"] = elastic_phase(torch, dev, out_dir)
 
     # -- 5. results -----------------------------------------------------------
     record.update(
@@ -1870,4 +2161,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--grid-worker"]:
         sys.exit(grid_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(elastic_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -20,8 +20,10 @@ gloo, staged through pinned host memory.
 The coordinates travel in env vars of the port's own
 (``REPRO_TORCH_COORDINATOR`` / ``REPRO_TORCH_NUM_PROCESSES`` /
 ``REPRO_TORCH_PROCESS_ID`` / ``REPRO_TORCH_CONNECT_TIMEOUT``, set by
-:func:`worker_env`), never the JAX package's ``REPRO_*``, so a JAX worker
-and a port worker never join each other's grid.  A worker calls
+:func:`worker_env`, and ``REPRO_TORCH_MEMBERSHIP`` for a grid launched
+with a membership service, :mod:`repro_torch.launch.membership`), never
+the JAX package's ``REPRO_*``, so a JAX worker and a port worker never join
+each other's grid.  A worker calls
 :func:`maybe_initialize_from_env` before its first collective; anything
 launched through :func:`launch_grid` (this CLI, the sweep's
 ``--processes`` fan-out) joins the same grid protocol.
@@ -95,6 +97,7 @@ def worker_env(
     process_id: int = 0,
     base: Mapping[str, str] | None = None,
     connect_timeout: float | None = None,
+    membership: str | None = None,
 ) -> dict[str, str]:
     """The environment one worker process boots with.
 
@@ -103,8 +106,12 @@ def worker_env(
     coordinates and the connect bound are stamped (and gloo is pointed at
     the loopback interface for a ``127.0.0.1`` store, unless the caller
     chose an interface); without it every grid variable is scrubbed, so a
-    worker never inherits stale coordinates.
+    worker never inherits stale coordinates.  ``membership`` (``host:port``
+    of the rank-0 membership service) is stamped as
+    ``REPRO_TORCH_MEMBERSHIP`` by the same rule: scrubbed when absent.
     """
+    from repro_torch.launch.membership import MEMBERSHIP_VAR
+
     env = dict(os.environ if base is None else base)
     if coordinator is not None:
         env[COORDINATOR_VAR] = coordinator
@@ -119,6 +126,10 @@ def worker_env(
         env[CONNECT_TIMEOUT_VAR] = str(connect_timeout)
     else:
         env.pop(CONNECT_TIMEOUT_VAR, None)
+    if membership is not None:
+        env[MEMBERSHIP_VAR] = membership
+    else:
+        env.pop(MEMBERSHIP_VAR, None)
     src = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
     env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
     return env
@@ -188,6 +199,7 @@ def _launch_grid_once(
     timeout: float,
     env: Mapping[str, str] | None,
     reap_grace: float = 10.0,
+    membership: bool = False,
 ) -> GridResult:
     """One grid attempt against a freshly picked store port.
 
@@ -199,8 +211,14 @@ def _launch_grid_once(
     a dead store or in a ``recv`` from a dead peer would hold the grid for
     its whole ``timeout``.  The worker-side half is the
     ``REPRO_TORCH_CONNECT_TIMEOUT`` bound stamped into every rank's env.
+
+    With ``membership`` a second port, for the rank-0 membership service
+    (:mod:`repro_torch.launch.membership`), is picked here and advertised
+    to every rank as ``REPRO_TORCH_MEMBERSHIP``; the rank-0 program binds
+    it with :func:`repro_torch.launch.membership.serve_from_env`.
     """
     coordinator = f"127.0.0.1:{pick_coordinator_port()}"
+    membership_addr = f"127.0.0.1:{pick_coordinator_port()}" if membership else None
     procs, files = [], []
     deadline = time.monotonic() + timeout
     reap_at = None  # set when the first rank dies nonzero
@@ -214,7 +232,8 @@ def _launch_grid_once(
             procs.append(subprocess.Popen(
                 list(argv),
                 env=worker_env(coordinator=coordinator, num_processes=processes,
-                               process_id=rank, base=env, connect_timeout=timeout),
+                               process_id=rank, base=env, connect_timeout=timeout,
+                               membership=membership_addr),
                 stdout=out_f, stderr=err_f, text=True,
             ))
         while any(p.poll() is None for p in procs):
@@ -255,6 +274,7 @@ def launch_grid(
     check: bool = True,
     attempts: int = 3,
     reap_grace: float = 10.0,
+    membership: bool = False,
 ) -> str | GridResult:
     """Run ``argv`` as an N-process ``torch.distributed`` grid; return rank
     0's stdout.
@@ -269,13 +289,14 @@ def launch_grid(
     (:func:`is_port_race_failure`) is relaunched with a fresh port, up to
     ``attempts`` tries; real failures surface at once.  ``timeout`` is the
     wall-clock bound of each attempt, and each worker's connect and
-    collective bound.
+    collective bound.  ``membership`` advertises a port for the rank-0
+    membership service (see :func:`_launch_grid_once`).
     """
     if processes < 1 or attempts < 1:
         raise ValueError((processes, attempts))
     for attempt in range(1, attempts + 1):
         result = _launch_grid_once(argv, processes=processes, timeout=timeout, env=env,
-                                   reap_grace=reap_grace)
+                                   reap_grace=reap_grace, membership=membership)
         if result.ok or not (attempt < attempts
                              and is_port_race_failure(result.errs, result.returncodes)):
             break

@@ -28,7 +28,9 @@ transposes each family's weight matrices: in the dense tree every leaf named
 vector, ``ck``/``cv``/``cr`` are matrices).  Embeddings, norms, biases,
 mixes and the bonus keep their layout.  :func:`params_to_numpy` is the
 inverse.  bf16 arrays (ml_dtypes ``bfloat16``) cross as their 16-bit
-patterns, exactly.
+patterns, exactly; :func:`params_to_numpy` names that type through numpy
+(``np.dtype("bfloat16")``), so a process without ml_dtypes loaded cannot
+take bf16 leaves out.
 """
 
 from __future__ import annotations
@@ -61,9 +63,9 @@ def _to_torch(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes  # the JAX package's bf16 numpy type
-
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        # the bf16 numpy type that ml_dtypes registers by name, loaded by
+        # any JAX consumer of the tree (the port never imports it)
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16"))
     return t.numpy()
 
 

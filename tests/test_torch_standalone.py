@@ -1,8 +1,8 @@
 """The PyTorch port stands alone and never runs on the CPU unasked.
 
 * No module of ``src/repro_torch/``, no line of ``chip_smoke.py`` and none
-  of the port's example imports ``jax`` or anything of the JAX package
-  ``repro`` (checked on the syntax tree, so an import inside a function
+  of the port's example imports ``jax``, ``ml_dtypes`` or anything of the
+  JAX package ``repro`` (checked on the syntax tree, so an import inside a function
   counts too).
 * Entry points take the card by default: without CUDA they raise instead of
   running on the CPU, and the CUDA kernel wrappers refuse CPU tensors.
@@ -47,13 +47,17 @@ def test_port_has_modules_and_smoke_script():
                      "src/repro_torch/serving/engine.py", "src/repro_torch/launch/serve.py",
                      "src/repro_torch/launch/mapping.py", "src/repro_torch/core/autotune.py",
                      "src/repro_torch/stencil/sweep.py",
+                     "src/repro_torch/train/fault_tolerance.py",
+                     "src/repro_torch/train/checkpoint.py",
+                     "src/repro_torch/launch/membership.py",
+                     "src/repro_torch/launch/elastic.py",
                      "examples/stencil_heat3d_torch.py"):
         assert required in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_reference_package_import(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
