@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU: the halo
 exchange (heat3d), its §VI sweep, its multi-process grid and its elastic
-recovery, llama3-8b serving and rwkv6-1.6b serving.
+recovery, llama3-8b serving and rwkv6-1.6b serving, and both models
+sequence-parallel on a virtual ring of 8 ranks.
 
     python3 chip_smoke.py
 
@@ -180,6 +181,37 @@ G. Elastic recovery (``repro_torch.launch.elastic``) at the heat3d size,
    the launches; writes the four ``bench_record()`` rows with the card's
    name and power limit to ``chiprun_out/BENCH_torch_elastic.json``
    (copied to the repository root and committed).
+H. The partitioned pipeline on the LM side (``tools/ring_lm.py``), at the
+   end of phase B and of phase D on the weights already on the card, on a
+   ``(1, 8)`` ``VirtualMesh`` over ``("data", "model")``: (H1) the phase B
+   requests through ``ServingEngine`` under ``seq_parallel=True``,
+   ``comm_packer="cuda"``, coalesced, at ``n_parts`` 1 and 4 (ring
+   attention in every prefill): ``gather_pack`` and ``copy_convert``
+   launches equal to layers x 7 hops x rounds (one gather and two copies a
+   round), no ``flash_attention`` launch, tokens equal to phase B's local
+   engine or a near tie at the first difference; at every KV hop the
+   serves ran (each bucket and ``n_parts``), ``gather_pack`` bitwise
+   against ``gather_pack_ref``, each ``copy_convert`` unpack window
+   against ``unpack_2d_ref`` and the hop against the ring shift; the
+   2048-token prefill's logits with packer ``cuda`` bitwise equal to
+   packer ``slice``'s, and within ``ring_lm.RING_REL_TOL`` (relative L2)
+   of the local prefill while a planted fault (rank 0's KV block left out
+   of the other ranks' attention) reads above it, prefill ms in turns (the
+   KV hop's kept plan against one built each call) and the exchange
+   kernels' share of the ring prefill's device time; (H2) llama3-8b
+   ``logits`` with ``tp_mode="ring"`` on 512 tokens within
+   ``ring_lm.TP_RING_REL_TOL`` of the local logits, which a planted fault
+   (each block's own partial product left out) must exceed; (H3)
+   rwkv6-1.6b ``logits`` at T = 2048 with ``state_method`` ``ring`` and
+   ``tree`` against the local model (f32 weights held within
+   ``ring_lm.RWKV_F32_REL_TOL``, which planted faults must exceed: no
+   state passed, and with slow decays, where a segment's D is O(1), D
+   dropped; bf16 reported), ``state_passing`` alone at the model's state
+   against a sequential f64 composition, ``wkv_chunked`` launched
+   2 x 24 times a call, and ``message_all_to_all`` bitwise against
+   ``partitioned_all_to_all`` for packers ``slice`` and ``cuda``, coalesced
+   or not, ``n_parts`` 1 and 4.  Their launches join the summary line's
+   (``launches_by_path``).
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -395,6 +427,7 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
     from repro_torch.kernels.flash_attention import attention_plain
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingEngine
+    import ring_lm
     from time_plan_graph import decode_row, eager_decode_engine
 
     cfg = get_config("llama3-8b")
@@ -443,7 +476,7 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
     captured = [p.name for p in engine.plans._plans.values() if p.captured]
     if captured != ["decode_fn"]:
         fail(f"captured plans {captured}: the decode plan alone replays a CUDA graph")
-    kernels["flash_attention"]["launches"] = launches["flash_attention"]
+    add_launches(kernels["flash_attention"], "llama3-8b serving (B)", launches["flash_attention"])
 
     # the same requests with the decode step eager: equal tokens
     _, eager_tokens, eager_s = serve(model, eager_decode_engine())
@@ -533,7 +566,30 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
     )
     print("serving:", json.dumps({k: v for k, v in out.items() if not k.endswith("_trace")}),
           flush=True)
+
+    # -- H1, H2: sequence-parallel llama3-8b on a virtual ring of 8 ranks ----
+    t0 = time.perf_counter()
+    try:
+        ring = ring_lm.llama_ring(torch, dev, model, params, prompts, tokens, slots=SERVE_SLOTS,
+                                  max_len=SERVE_MAX_LEN, new_tokens=SERVE_NEW,
+                                  logits_at=plain_logits_at)
+    except ring_lm.PhaseFailure as e:
+        fail(f"phase H (llama3-8b): {e}")
+    ring["phase_s"] = time.perf_counter() - t0
+    for kname in ("copy_convert", "gather_pack"):
+        add_launches(kernels[kname], "ring prefill, llama3-8b serving (H1)",
+                     ring["launches"].get(kname, 0))
+    print(f"phase H (llama3-8b) took {ring['phase_s']:.1f} s", flush=True)
+    out["ring"] = ring
     return out
+
+
+def add_launches(kd: dict, path: str, n: int) -> None:
+    """Count ``n`` launches of a kernel on one more main path of the
+    summary line: ``launches`` is the sum over ``launches_by_path``."""
+    by = kd.setdefault("launches_by_path", {})
+    by[path] = by.get(path, 0) + n
+    kd["launches"] = sum(by.values())
 
 
 def wkv_flops(rows: int, T: int, c: int, hd: int) -> int:
@@ -740,6 +796,7 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
     from repro_torch.kernels.wkv import wkv_chunked, wkv_plain
     from repro_torch.models import build_model
     from repro_torch.serving.engine import ServingEngine
+    import ring_lm
     from time_plan_graph import decode_row, eager_decode_engine
 
     cfg = get_config("rwkv6-1.6b")
@@ -796,7 +853,7 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
     captured = [p.name for p in engine.plans._plans.values() if p.captured]
     if captured != ["decode_fn"]:
         fail(f"captured plans {captured}: the decode plan alone replays a CUDA graph")
-    kernels["wkv_chunked"]["launches"] = launches["wkv_chunked"]
+    add_launches(kernels["wkv_chunked"], "rwkv6-1.6b serving (D)", launches["wkv_chunked"])
 
     # the same requests with the decode step eager: equal tokens
     _build.reset_launches()
@@ -878,7 +935,7 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
           f"{equal32}/{len(prompts)} requests equal; near ties at the first difference: "
           f"{json.dumps(ties32)}; max |prefill logit kernel - plain| {json.dumps(logit_err32)}",
           flush=True)
-    del params32, engine32
+    del engine32
 
     prefill_ms = {}
     for n in RWKV_LENGTHS:
@@ -926,6 +983,23 @@ def serve_rwkv(torch, dev, kernels: dict) -> dict:
     )
     print("rwkv serving:", json.dumps({k: v for k, v in out.items() if not k.endswith("_trace")}),
           flush=True)
+
+    # -- H3: sequence-parallel rwkv6-1.6b on a virtual ring of 8 ranks ---------
+    t0 = time.perf_counter()
+    try:
+        ring = ring_lm.rwkv_ring(torch, dev, model, params, params32)
+    except ring_lm.PhaseFailure as e:
+        fail(f"phase H (rwkv6-1.6b): {e}")
+    del params32
+    ring["phase_s"] = time.perf_counter() - t0
+    add_launches(kernels["wkv_chunked"], "sequence-parallel logits, rwkv6-1.6b (H3)",
+                 sum(n for k, n in ring["launches"].items() if not k.endswith("local")))
+    a2a = {k: sum(c.get(k, 0) for c in ring["all_to_all_launches"].values())
+           for k in ("copy_convert", "gather_pack")}
+    for kname, n in a2a.items():
+        add_launches(kernels[kname], "message_all_to_all (H3)", n)
+    print(f"phase H (rwkv6-1.6b) took {ring['phase_s']:.1f} s", flush=True)
+    out["ring"] = ring
     return out
 
 
@@ -1948,7 +2022,7 @@ def main() -> int:
     for kname in ("copy_convert", "gather_pack", "stencil27"):
         if launches.get(kname, 0) <= 0:
             fail(f"kernel {kname} was not launched on the main path")
-        kernels[kname]["launches"] = launches[kname]
+        add_launches(kernels[kname], "heat3d (phase 4)", launches[kname])
     ref_sum = next(iter(results.values())).checksum
     for label, r in results.items():
         if not math.isfinite(r.checksum) or abs(r.checksum - ref_sum) >= 1e-3 + 1e-3 * abs(ref_sum):
@@ -2149,7 +2223,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kd[k] for k in (*keys, "route_by_dtype") if k in kd}
+    print(json.dumps({"kernels": [{k: kd[k] for k in (*keys, "launches_by_path", "route_by_dtype")
+                                   if k in kd}
                                   for kd in kernels.values()]}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,8 @@
 #   transport — Message tables, packers, the loopback and multihost transports
 #   plan      — persistent plans (MPI_Send_init analogue)
 #   halo      — N-D ghost-cell exchange schedules
+#   partitioned — chunked early-consume collectives (MPI partitioned analogue)
+#   ring      — ring attention + recurrent-state passing (LM integrations)
 
 from repro_torch.core.compat import resolve_device
 from repro_torch.core.mesh import VirtualMesh, make_mesh
@@ -22,6 +24,18 @@ from repro_torch.core.transport import (
 )
 from repro_torch.core.plan import PLANS, CommPlan, PlanCache
 from repro_torch.core.halo import HaloSpec, exchange, exchange_fused
+from repro_torch.core.partitioned import (
+    bucketed_psum_tree,
+    partitioned_all_to_all,
+    partitioned_ppermute,
+    partitioned_psum,
+    partitioned_psum_scatter,
+    ring_all_gather,
+    ring_all_gather_matmul,
+    ring_matmul_reduce_scatter,
+    ring_perm,
+)
+from repro_torch.core.ring import ring_attention, state_passing
 
 __all__ = [
     "resolve_device", "VirtualMesh", "make_mesh",
@@ -29,4 +43,8 @@ __all__ = [
     "Transport", "available_packers", "available_transports", "get_packer",
     "get_transport", "register_packer", "register_transport",
     "PLANS", "CommPlan", "PlanCache", "HaloSpec", "exchange", "exchange_fused",
+    "partitioned_ppermute", "partitioned_all_to_all", "partitioned_psum",
+    "partitioned_psum_scatter", "ring_all_gather", "ring_all_gather_matmul",
+    "ring_matmul_reduce_scatter", "bucketed_psum_tree", "ring_perm",
+    "ring_attention", "state_passing",
 ]

@@ -36,6 +36,7 @@ import abc
 import collections
 import contextlib
 import dataclasses
+import functools
 import itertools
 import math
 import os
@@ -47,6 +48,7 @@ import torch
 
 from repro_torch.core.compat import torch_dtype
 from repro_torch.core.mesh import VirtualMesh
+from repro_torch.core.plan import PLANS
 
 
 # ---------------------------------------------------------------------------
@@ -68,6 +70,19 @@ class Partitioner:
     def part_size(self, size: int) -> int:
         return (size + self.pad_amount(size)) // self.n_parts
 
+    def split(self, x: torch.Tensor) -> list[torch.Tensor]:
+        """``n_parts`` equal partitions of ``x`` along the axis, the tail
+        zero-padded when the size does not divide."""
+        pad = self.pad_amount(x.shape[self.axis])
+        if pad:
+            widths = [0, 0] * (x.dim() - 1 - self.axis % x.dim()) + [0, pad]
+            x = torch.nn.functional.pad(x, widths)
+        return list(torch.chunk(x, self.n_parts, dim=self.axis))
+
+    def merge(self, parts: Sequence[torch.Tensor], orig_size: int) -> torch.Tensor:
+        """Concatenate partitions back and clip the padding off."""
+        return torch.cat(list(parts), dim=self.axis).narrow(self.axis, 0, orig_size)
+
     def slices(self, size: int) -> list[tuple[int, int]]:
         """(offset, valid width) of each partition within the *un-padded*
         axis; the tail partition's width is clipped (0 when fully padding)."""
@@ -75,6 +90,12 @@ class Partitioner:
         return [
             (i * c, max(0, min(c, size - i * c))) for i in range(self.n_parts)
         ]
+
+
+def ring_perm(size: int, shift: int = 1) -> list[tuple[int, int]]:
+    """Ring source->target table over a mesh axis of ``size`` ranks (the
+    JAX version reads the size from a live axis)."""
+    return [(i, (i + shift) % size) for i in range(size)]
 
 
 # ---------------------------------------------------------------------------
@@ -610,6 +631,27 @@ class Transport(abc.ABC):
     def move(self, buf: torch.Tensor, route: Route, out: torch.Tensor | None = None) -> torch.Tensor:
         """One collective, started and completed."""
         return self.wait(self.start(buf, route, out))
+
+    def permute(self, buf: torch.Tensor, mesh: VirtualMesh, axis_name,
+                perm: Sequence[tuple[int, int]]) -> torch.Tensor:
+        """One hop of every rank's ``buf`` (``(R, ...)``, stacked) along
+        ``axis_name`` per the (src, dst) table, into a new tensor: the
+        counterpart of JAX's ``Transport.permute`` (``lax.ppermute``); ranks
+        receiving nothing get zeros.  The route is built by
+        :meth:`route_table` once per (transport, mesh, hop) and kept as an
+        eager plan in the process's plan registry
+        (:data:`~repro_torch.core.plan.PLANS`).  A mesh over several
+        processes is refused: the stacked-rank collectives run in one
+        process (ROADMAP Queue 1 item 17)."""
+        if mesh.processes > 1:
+            raise NotImplementedError(
+                f"a stacked-rank permute over a mesh of {mesh.processes} processes: "
+                f"ROADMAP Queue 1 item 17 (ring paths on a grid of processes)")
+        hop = (axis_name, tuple((int(a), int(b)) for a, b in perm))
+        plan = PLANS.get_or_init(
+            lambda: functools.partial(self.move, route=self.route_table(hop, mesh, buf)),
+            key=("permute", self, mesh, hop), device=mesh.device, name="permute")
+        return plan.start(buf)
 
     def capturable(self, mesh: VirtualMesh) -> bool:
         """Whether a move over ``mesh`` is device work alone, so that a

@@ -2,9 +2,9 @@
 
 * :func:`copy_convert` replaces the Pallas ``_copy_convert_kernel`` behind
   ``pack_2d``/``unpack_2d`` (``src/repro/kernels/pack/pack.py``).  It copies
-  one batched window of up to 1 + 3 dims with dtype convert and scale, and
-  takes both sides' strides, so a pack reads the ghost slab in place and an
-  unpack writes straight into the ghost window.
+  one batched window that collapses to at most 1 + 3 dims with dtype
+  convert and scale, and takes both sides' strides, so a pack reads the
+  ghost slab in place and an unpack writes straight into the ghost window.
 * :func:`gather_pack` replaces ``_gather_pack_kernel`` behind
   ``gather_pack_1d``.  One launch fills the ``(R, total)`` coalesced wire
   buffer of all R stacked ranks from a device-resident work table: each
@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
 import math
 from typing import Sequence
 
@@ -111,6 +112,9 @@ def _launch_layout(shape: tuple[int, ...], src_strides: tuple[int, ...],
     width its strides allow, once per layout: a plan's windows repeat every
     step, so the per-call work left is the base pointers' alignment."""
     n, ss, ds = collapse_window(shape, src_strides, dst_strides)
+    if len(n) > 4:
+        raise ValueError(f"copy_convert: window {tuple(shape)} collapses to {len(n)} dims "
+                         f"(at most 4)")
     vec = vector_width(n, ss, ds, 0, 0, src_size, dst_size)
     pad = 4 - len(n)
     n, ss, ds = (1,) * pad + n, (0,) * pad + ss, (0,) * pad + ds
@@ -121,13 +125,14 @@ def _launch_layout(shape: tuple[int, ...], src_strides: tuple[int, ...],
 
 def copy_convert(src: torch.Tensor, dst: torch.Tensor, *, scale: float = 1.0) -> torch.Tensor:
     """``dst[...] = (src.float() * f32(scale)).to(dst.dtype)``, elementwise,
-    for same-shaped strided views (<= 4 dims, f32/bf16).  The window is
-    collapsed (:func:`collapse_window`) into rows and a run, moved 16 bytes
-    a thread where :func:`vector_width` allows.  Returns ``dst``."""
+    for same-shaped strided views (f32/bf16) that collapse
+    (:func:`collapse_window`) to at most 4 dims, such as a window of a
+    5-D ring-attention KV buffer; the rows and run are moved 16 bytes a
+    thread where :func:`vector_width` allows.  Returns ``dst``."""
     _check_cuda("copy_convert", src, dst)
-    if src.shape != dst.shape or src.dim() > 4:
+    if src.shape != dst.shape:
         raise ValueError(f"copy_convert: shapes {tuple(src.shape)} -> "
-                         f"{tuple(dst.shape)} (same shape, <= 4 dims)")
+                         f"{tuple(dst.shape)} (same shape)")
     if src.dtype not in _DTYPE_CODE or dst.dtype not in _DTYPE_CODE:
         raise TypeError(f"copy_convert: {src.dtype} -> {dst.dtype} (f32/bf16 only)")
     if any(s < 0 for s in (*src.stride(), *dst.stride())):
@@ -147,13 +152,14 @@ def copy_convert(src: torch.Tensor, dst: torch.Tensor, *, scale: float = 1.0) ->
 
 def segment_rows(segments: Sequence, local_shape: Sequence[int]) -> list[list[int]]:
     """``(offset, start, shape)`` rows (or ``WireSegment`` values) as the
-    kernel's 7-column table, local dims padded to 3 with leading unit dims.
-    Raises unless the windows lie inside ``local_shape`` and the offsets
-    tile the buffer in order (the kernel trusts the table)."""
+    rows :func:`work_rows` reads, local dims padded to 3 with leading unit
+    dims (blocks of more dims, such as the ring-attention KV buffer's 5, keep
+    theirs).  Raises unless the windows lie inside ``local_shape`` and the
+    offsets tile the buffer in order (the kernel trusts the table)."""
     ndim = len(local_shape)
-    if not 1 <= ndim <= 3:
-        raise ValueError(f"gather_pack: local blocks of 1..3 dims, got {ndim}")
-    pad = 3 - ndim
+    if ndim < 1:
+        raise ValueError(f"gather_pack: local blocks of at least 1 dim, got {ndim}")
+    pad = max(0, 3 - ndim)
     rows, covered = [], 0
     for s in segments:
         off, start, shape = (s if isinstance(s, tuple)
@@ -197,7 +203,8 @@ def work_rows(rows: tuple[tuple[int, ...], ...], local_shape: tuple[int, ...],
     if chunk_elems <= 0 or chunk_elems % 8:
         raise ValueError(f"gather_pack: chunks of {chunk_elems} elements (a multiple of 8)")
     local = (1,) * (3 - len(local_shape)) + tuple(local_shape)
-    strides = (local[1] * local[2], local[2], 1)
+    nd = len(local)
+    strides = tuple(math.prod(local[i + 1:]) for i in range(nd))
     work: list[tuple[int, ...]] = []
 
     def chunk(wire: int, src: int, nrows: int, run: int, srow: int) -> None:
@@ -208,19 +215,20 @@ def work_rows(rows: tuple[tuple[int, ...], ...], local_shape: tuple[int, ...],
         work.append((wire, src, nrows, run, srow, tpr.bit_length() - 1, align))
 
     for off, *rest in rows:
-        start, shape = rest[:3], tuple(rest[3:])
+        start, shape = rest[:nd], tuple(rest[nd:])
         src = sum(b * s for b, s in zip(start, strides))
-        n, ss, _ = collapse_window(shape, strides, (shape[1] * shape[2], shape[2], 1))
+        wire_strides = tuple(math.prod(shape[i + 1:]) for i in range(nd))
+        n, ss, _ = collapse_window(shape, strides, wire_strides)
         if ss[-1] != 1:  # the innermost dim left is strided: runs of one element
             n, ss = (*n, 1), (*ss, 1)
         *outer, run = n
-        # every row start of the segment, as (source offset, rows, row stride)
+        # every row start of the segment, as (source offset, rows, row stride):
+        # the last outer dim is a chunk's rows, the ones outside it enumerated
         if not outer:
             groups = [(src, 1, 0)]
-        elif len(outer) == 1:
-            groups = [(src, outer[0], ss[0])]
         else:
-            groups = [(src + i * ss[0], outer[1], ss[1]) for i in range(outer[0])]
+            groups = [(src + sum(i * s for i, s in zip(idx, ss)), outer[-1], ss[len(outer) - 1])
+                      for idx in itertools.product(*(range(k) for k in outer[:-1]))]
         wire = off
         for base, nrows, srow in groups:
             if run >= chunk_elems:
@@ -265,8 +273,8 @@ def gather_pack(
     nchunk = table.shape[0]
     if not 1 <= nchunk < 2**31:
         raise ValueError(f"gather_pack: {nchunk} chunks (1..2**31 - 1)")
-    if not 2 <= x.dim() <= 4:
-        raise ValueError("gather_pack: x must be (R, *local) with 1..3 local dims")
+    if x.dim() < 2:
+        raise ValueError("gather_pack: x must be (R, *local) with at least 1 local dim")
     if x.dtype not in _DTYPE_CODE or out.dtype not in _DTYPE_CODE:
         raise TypeError(f"gather_pack: {x.dtype} -> {out.dtype} (f32/bf16 only)")
     ranks, rank_stride = x.shape[0], math.prod(x.shape[1:])

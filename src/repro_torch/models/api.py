@@ -92,6 +92,6 @@ def build_model(cfg: ModelConfig, device: str | torch.device | None = None, *,
     module = _FAMILY_MODULES.get(cfg.family)
     if module is None:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP Queue 1 item 18")
+            f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP Queue 1 item 13")
     return Model(cfg=cfg, module=module, device=resolve_device(device), attention=attention,
                  wkv=wkv)

@@ -11,10 +11,14 @@ Local attention goes through :func:`repro_torch.kernels.flash_attention.
 ops.attention`: the CUDA flash kernel for a CUDA tensor, the plain version
 for a CPU tensor, whatever ``ctx.use_flash`` says.  A caller may inject
 another function of the same signature (``attention=``), as a test or a
-comparison run does with the plain version on the card.  Ring attention,
-blockwise attention, cross attention, the ring MLP and the losses are not
-ported yet (ROADMAP Queue 1 items 15-16); a context that asks for a ring
-path raises ``NotImplementedError``.
+comparison run does with the plain version on the card.
+
+Under a sequence-parallel context on a mesh, prefill attention is ring
+attention over the model axis (:func:`repro_torch.core.ring.
+ring_attention`) on the stacked ranks (:func:`repro_torch.parallel.context.
+shard_ranks`); ``tp_mode="ring"`` runs :func:`apply_mlp_ring`.  Blockwise
+attention, cross attention and the losses are not ported yet (ROADMAP
+Queue 1 items 13-14).
 """
 
 from __future__ import annotations
@@ -27,15 +31,21 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import torch_dtype
+from repro_torch.core.partitioned import ring_all_gather_matmul, ring_matmul_reduce_scatter
+from repro_torch.core.ring import ring_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF
-from repro_torch.parallel.context import LOCAL, ParallelContext
+from repro_torch.parallel.context import (
+    LOCAL,
+    ParallelContext,
+    model_shards,
+    shard_ranks,
+    unshard_ranks,
+)
 
 Params = dict
 #: ``attention(q, k, v, *, causal)`` on ``(B, S, H, D)`` tensors
 AttentionFn = Callable[..., torch.Tensor]
-
-RING_TODO = "ROADMAP Queue 1 item 16 (ring attention, ring MLP)"
 
 
 def _pdtype(cfg: ModelConfig) -> torch.dtype:
@@ -163,7 +173,14 @@ def prefill_attention(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, v: tor
     """Attention for prefill bodies (q, k, v post-rope, (B, S, H, D))."""
     causal = cfg.causal if causal is None else causal
     if ctx.seq_parallel and ctx.mesh is not None and ctx.model_axis:
-        raise NotImplementedError(f"sequence-parallel prefill attention: {RING_TODO}")
+        # sequence-parallel ring attention: the KV shards circulate the
+        # model axis with partitioned (n_parts) exchange, the paper's
+        # pipeline; heads stay whole on every rank
+        out = ring_attention(
+            shard_ranks(q, ctx), shard_ranks(k, ctx), shard_ranks(v, ctx), ctx.mesh,
+            ctx.model_axis, causal=causal, n_parts=ctx.n_parts, packer=ctx.comm_packer,
+            coalesce=ctx.comm_coalesce)
+        return unshard_ranks(out, ctx)
     return _local_attention(q, k, v, causal=causal, ctx=ctx, attention=attention)
 
 
@@ -238,6 +255,35 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator, d_ff: int | None = None) 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
+
+
+def apply_mlp_ring(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   ctx: ParallelContext) -> torch.Tensor:
+    """Sequence-sharded Megatron-SP MLP on the partitioned ring primitives:
+    the ring all-gather of x consumed by the gate and up matmuls in flight,
+    then the ring matmul-reduce-scatter back to the sequence shards.  The
+    wire carries the gather and the scatter, half the column/row-parallel
+    all-reduce, and every hop overlaps a chunk matmul (``MPI_Parrived``
+    early work).  Rank ``i`` holds output columns ``i`` of the gate and up
+    weights and input columns ``i`` of the down weight."""
+    d = x.shape[-1]
+    xl = shard_ranks(x, ctx)  # rows seq-major: the gathered blocks are seq shards
+    r, bl, sl, _ = xl.shape
+    x2 = xl.reshape(r, bl * sl, d)
+
+    def col(name):  # (R, d, f/k) of an (f, d) weight
+        return model_shards(p[name].to(x.dtype), ctx, 0).mT
+
+    if cfg.act in ("silu", "geglu"):
+        act = F.silu if cfg.act == "silu" else _gelu
+        hg, hu = ring_all_gather_matmul(x2, [col("w_gate"), col("w_up")], ctx.mesh,
+                                        ctx.model_axis)
+        h = act(hg) * hu
+    else:
+        h = _gelu(ring_all_gather_matmul(x2, col("w_up"), ctx.mesh, ctx.model_axis))
+    w_down = model_shards(p["w_down"].to(x.dtype), ctx, 1).mT  # (R, f/k, d)
+    y = ring_matmul_reduce_scatter(h, w_down, ctx.mesh, ctx.model_axis)
+    return unshard_ranks(y.reshape(r, bl, sl, d), ctx)
 
 
 def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:

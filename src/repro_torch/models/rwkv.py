@@ -17,8 +17,16 @@ Layers are a list of per-layer dicts looped in Python; weights are stored
 ``(out, in)`` and applied with ``F.linear``.  Prefill and decode return a
 new cache (the JAX layout: ``tm_shift``/``cm_shift`` ``(L, B, 1, d)``,
 ``wkv`` ``(L, B, H, hd, hd)`` f32, ``pos`` ``(B,)``) and leave the given one
-as it is.  The sequence-parallel scan (``wkv_segment_operator`` over
-``core/ring.state_passing``) and the loss are not ported yet.
+as it is.
+
+Under a sequence-parallel context on a mesh the time mix scans each rank's
+sequence shard twice through the same ``wkv`` function, every rank folded
+into the batch of one call: once from a zero state for the shard's affine
+operator (:func:`wkv_segment_operator`), then from the incoming state that
+:func:`repro_torch.core.ring.state_passing` composes along the model axis.
+As in JAX, that branch returns no final state, and prefill and decode call
+the time mix without the context, so they scan locally.  The loss waits
+for the training slice.
 """
 
 from __future__ import annotations
@@ -30,10 +38,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import torch_dtype
+from repro_torch.core.ring import state_passing
 from repro_torch.kernels.wkv import ops as wkv_ops
 from repro_torch.kernels.wkv.ref import CHUNK  # the JAX model's chunk when the config names none
 from repro_torch.models import layers as L
-from repro_torch.parallel.context import LOCAL, ParallelContext
+from repro_torch.parallel.context import LOCAL, ParallelContext, shard_ranks, unshard_ranks
 
 Params = dict
 #: ``wkv(r, k, v, lw, u, *, chunk, S0)`` on ``(B, T, H, hd)`` -> ``(y, S_fin)``
@@ -98,6 +107,41 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 
 # ---------------------------------------------------------------------------
+# sequence parallelism
+# ---------------------------------------------------------------------------
+
+
+def wkv_segment_operator(k: torch.Tensor, v: torch.Tensor, lw: torch.Tensor,
+                         chunk: int = CHUNK, *, wkv: WkvFn | None = None):
+    """(C, D) of a sequence segment, ``S_out = D * S_in + C`` (for
+    ``state_passing``): C is the scan's final state from a zero state with
+    ``r = 0`` and ``u = 0`` (on the card the ``wkv_chunked`` kernel), D
+    ``exp(sum lw)`` as ``(B, H, hd, 1)``, broadcast over the value dim."""
+    B, T, H, hd = k.shape
+    r0 = torch.zeros_like(k)
+    u0 = torch.zeros((H, hd), dtype=k.dtype, device=k.device)
+    _, C = (wkv or wkv_ops.wkv)(r0, k, v, lw, u0, chunk=chunk)
+    D = torch.exp(torch.sum(lw, dim=1))[..., None]
+    return C, D
+
+
+def _seq_parallel_wkv(r, k, v, lw, u, *, chunk: int, ctx: ParallelContext,
+                      wkv: WkvFn | None) -> torch.Tensor:
+    """y of the whole ``(B, T, H, hd)`` sequence, sharded over the model
+    axis: each rank's segment operator, the incoming states composed along
+    the axis, then each rank's scan from its incoming state."""
+    fn = wkv or wkv_ops.wkv
+    ranks = [shard_ranks(t, ctx) for t in (r, k, v, lw)]  # (R, b, T/k, H, hd)
+    n, b = ranks[0].shape[:2]
+    rs, ks, vs, ls = (t.flatten(0, 1) for t in ranks)  # every rank in the batch
+    C, D = wkv_segment_operator(ks, vs, ls, chunk=chunk, wkv=fn)
+    S_in = state_passing(C.unflatten(0, (n, b)), (D * torch.ones_like(C)).unflatten(0, (n, b)),
+                         ctx.mesh, ctx.model_axis, method=ctx.state_method)
+    y, _ = fn(rs, ks, vs, ls, u, chunk=chunk, S0=S_in.flatten(0, 1))
+    return unshard_ranks(y.unflatten(0, (n, b)), ctx)
+
+
+# ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
@@ -131,10 +175,12 @@ def time_mix(cfg: ModelConfig, lp: Params, x: torch.Tensor, *, ctx: ParallelCont
     chunk = cfg.scan_chunk or CHUNK
 
     if ctx.seq_parallel and ctx.mesh is not None and ctx.model_axis:
-        raise NotImplementedError(
-            "sequence-parallel time mix (wkv_segment_operator over core/ring."
-            "state_passing): ROADMAP Queue 1 item 16")
-    y, S_fin = (wkv or wkv_ops.wkv)(rf, kf, vf, lw, u, chunk=chunk, S0=S0)
+        # sequence parallel: local scans and the state composed across the
+        # ranks; no final state, as in JAX
+        y = _seq_parallel_wkv(rf, kf, vf, lw, u, chunk=chunk, ctx=ctx, wkv=wkv)
+        S_fin = None
+    else:
+        y, S_fin = (wkv or wkv_ops.wkv)(rf, kf, vf, lw, u, chunk=chunk, S0=S0)
 
     y = y.reshape(B, T, d).to(x.dtype) * g
     out = F.linear(y, lp["wo"].to(x.dtype))

@@ -56,11 +56,11 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 def decoder_block(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
                   ctx: ParallelContext, attention: AttentionFn | None = None) -> torch.Tensor:
-    if ctx.tp_mode == "ring" and ctx.mesh is not None and ctx.model_axis:
-        raise NotImplementedError(f"tp_mode='ring' MLP: {L.RING_TODO}")
     h = L.apply_norm(cfg, lp["norm_attn"], x)
     x = x + L.self_attention(cfg, lp["attn"], h, positions, ctx=ctx, attention=attention)
     h = L.apply_norm(cfg, lp["norm_mlp"], x)
+    if ctx.tp_mode == "ring" and ctx.mesh is not None and ctx.model_axis:
+        return x + L.apply_mlp_ring(cfg, lp["mlp"], h, ctx)
     return x + L.apply_mlp(cfg, lp["mlp"], h)
 
 

@@ -14,6 +14,12 @@ would hold a full activation set).  When a slot finishes (EOS / max
 tokens), the next queued request takes it over without stalling the
 running batch (continuous batching).
 
+Under a sequence-parallel ``ctx`` (a :class:`~repro_torch.core.mesh.
+VirtualMesh` with ``seq_parallel=True``) a dense prefill runs ring
+attention over the model axis; a bucket the ring size does not divide is
+refused with ``ValueError``, as JAX's ``shard_map`` refuses it.  Decode
+runs as without the context.
+
 The decode batch is fixed-size: empty slots decode padding tokens whose
 outputs are ignored.  The engine's cache lives on the model's device and is
 updated in place: a decode step writes its new state back into the cache

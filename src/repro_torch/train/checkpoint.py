@@ -47,10 +47,12 @@ _VIEW_DTYPES = {
 
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     """A leaf as the host array the file holds, and its dtype name; a
-    tensor is copied off its device, never shared with the caller."""
+    tensor is copied off its device, never shared with the caller, and in
+    C order whatever its strides (JAX hands ``np.save`` a C-ordered array,
+    so a transposed tensor would otherwise write a Fortran-order file)."""
     if isinstance(leaf, torch.Tensor):
         name = str(leaf.dtype).removeprefix("torch.")
-        t = leaf.detach().to("cpu", copy=True)
+        t = leaf.detach().to("cpu", copy=True).contiguous()
         if name in _VIEW_DTYPES:
             return t.view(_VIEW_DTYPES[name][1]).numpy().view(_VIEW_DTYPES[name][2]), name
         return t.numpy(), name

@@ -151,6 +151,24 @@ def test_both_packages_write_the_same_manifest(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("leaf", ["fortran", "0-d"])
+def test_leaf_files_are_byte_equal_to_jax(tmp_path, leaf):
+    """A transposed (Fortran-ordered) tensor leaf and a 0-d leaf: the leaf
+    files both packages write hold the same bytes, the ``.npy`` header
+    (``fortran_order``, shape) included."""
+    base = torch.arange(24, dtype=torch.float32).reshape(4, 6) * 0.5 - 3.0
+    t = base.t().contiguous().t() if leaf == "fortran" else torch.tensor(2.5)
+    if leaf == "fortran":
+        assert t.shape == (4, 6) and t.stride() == (1, 4)
+    t_ckpt.save({"a": t}, str(tmp_path / "torch"), 1)
+    j_ckpt.save({"a": jnp.asarray(t.numpy())}, str(tmp_path / "jax"), 1)
+    name = _manifest(tmp_path / "jax" / "step_00000001")["leaves"][0]["file"]
+    want = (tmp_path / "jax" / "step_00000001" / name).read_bytes()
+    got = (tmp_path / "torch" / "step_00000001" / name).read_bytes()
+    assert got == want
+    assert np.load(tmp_path / "torch" / "step_00000001" / name).shape == tuple(t.shape)
+
+
 TREES = [
     {"interior": 1, "step": 2},
     {"b": [1, (2, 3)], "a": {"x": None, "y": 1}},

@@ -168,17 +168,21 @@ def test_decode_past_the_cache_writes_nothing():
 
 
 def test_ring_context_raises():
+    """The ring paths run on a one-process mesh (tests/test_torch_models_
+    seqpar.py); on a mesh over several processes they are refused."""
+    from repro_torch.core.mesh import make_mesh
     from repro_torch.parallel.context import ParallelContext
 
     cfg, _ = _cfgs("llama3-8b", "float32")
     tm = build_model(cfg, "cpu")
     params = tm.init(0)
     toks = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
+    grid = make_mesh((1, 2), ("data", "model"), device="cpu", processes=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tm.prefill(params, toks, tm.init_cache(1, 8),
-                   ctx=ParallelContext(mesh=object(), seq_parallel=True))
-    for ctx in (ParallelContext(mesh=object(), seq_parallel=True),
-                ParallelContext(mesh=object(), tp_mode="ring")):
+                   ctx=ParallelContext(mesh=grid, seq_parallel=True))
+    for ctx in (ParallelContext(mesh=grid, seq_parallel=True),
+                ParallelContext(mesh=grid, tp_mode="ring")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tm.logits(params, toks, ctx=ctx)
 

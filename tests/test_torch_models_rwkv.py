@@ -179,13 +179,18 @@ def test_length_100_raises_in_both_packages():
 
 
 def test_sequence_parallel_context_raises():
+    """The sequence-parallel time mix runs on a one-process mesh
+    (tests/test_torch_models_seqpar.py); on a mesh over several processes it
+    is refused."""
+    from repro_torch.core.mesh import make_mesh
     from repro_torch.parallel.context import ParallelContext
 
     cfg, _ = _cfgs("float32")
     tm = build_model(cfg, "cpu")
     toks = {"tokens": torch.zeros((1, 8), dtype=torch.long)}
+    grid = make_mesh((1, 2), ("data", "model"), device="cpu", processes=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.logits(tm.init(0), toks, ctx=ParallelContext(mesh=object(), seq_parallel=True))
+        tm.logits(tm.init(0), toks, ctx=ParallelContext(mesh=grid, seq_parallel=True))
 
 
 def test_injected_wkv_is_used():

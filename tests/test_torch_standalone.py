@@ -18,7 +18,8 @@ torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "examples" / "stencil_heat3d_torch.py"]
+    ROOT / "chip_smoke.py", ROOT / "examples" / "stencil_heat3d_torch.py",
+    ROOT / "tools" / "ring_lm.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -51,6 +52,8 @@ def test_port_has_modules_and_smoke_script():
                      "src/repro_torch/train/checkpoint.py",
                      "src/repro_torch/launch/membership.py",
                      "src/repro_torch/launch/elastic.py",
+                     "src/repro_torch/core/partitioned.py", "src/repro_torch/core/ring.py",
+                     "tools/ring_lm.py",
                      "examples/stencil_heat3d_torch.py"):
         assert required in names
 
