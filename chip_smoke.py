@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA GPU: the halo
 exchange (heat3d), its §VI sweep, its multi-process grid and its elastic
-recovery, llama3-8b serving and rwkv6-1.6b serving, and both models
-sequence-parallel on a virtual ring of 8 ranks.
+recovery, llama3-8b serving and rwkv6-1.6b serving, both models
+sequence-parallel on a virtual ring of 8 ranks, and the MoE model:
+phi3.5-moe served and expert-parallel over 16 ranks, one grok-1 MoE FFN.
 
     python3 chip_smoke.py
 
@@ -212,6 +213,31 @@ H. The partitioned pipeline on the LM side (``tools/ring_lm.py``), at the
    ``partitioned_all_to_all`` for packers ``slice`` and ``cuda``, coalesced
    or not, ``n_parts`` 1 and 4.  Their launches join the summary line's
    (``launches_by_path``).
+I. The MoE model (``tools/moe_lm.py``), after phase D, on a ``(1, 16)``
+   ``VirtualMesh`` over ``("data", "model")`` where expert-parallel: (I1)
+   phi3.5-moe at full width, 16 of its 32 layers (random bf16 weights from
+   seed 0, 42 GB), served through ``ServingEngine(max_slots=4,
+   max_len=2048)`` under the local context: phase B's 8 requests, each
+   prefilled at its exact length, 16 new tokens; ``flash_attention``
+   launched 16 times a prefill, the dropless decode step the captured
+   graph; tokens against a plain-attention engine (equal or a near tie)
+   and against the eager decode (equal); prefill ms at 2000 tokens, decode
+   ms eager and graph beside the weights' bytes floor, tokens per second,
+   the share of (token, choice) pairs dropped at ``capacity_factor`` 1.25.
+   (I2) one 2048-token prompt's logits under ``moe_mode="ep"`` with
+   ``moe_comm`` ``native``, ``messages`` ``slice`` and ``messages`` ``cuda``
+   (coalesced) at ``n_parts`` 1 and 4: bitwise equal at each ``n_parts``;
+   ``gather_pack`` and each ``copy_convert`` window bitwise against their
+   plain versions at every exchange of the ``cuda`` runs, launches equal to
+   layers x 2 x ``n_parts`` x 16; at no-drop capacity within
+   ``moe_lm.EP_REL_TOL`` of the local model, which a planted fault (one
+   slot's expert output left out) must exceed; local and EP timed in turns
+   with idle and exchange shares.  (I3) one grok-1 MoE FFN at full width
+   (16 half-width slots, 9.7 GB) with the grouped psum: ``native`` and
+   ``messages`` ``cuda`` bitwise equal, within ``moe_lm.GROK_REL_TOL`` of
+   ``_moe_dense`` at no-drop capacity, which a planted fault (the partner
+   slot left out of the psum) must exceed.  The weights are freed before
+   phase E.  Its launches join the summary line's (``launches_by_path``).
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -581,6 +607,30 @@ def serve_llama(torch, dev, kernels: dict) -> dict:
                      ring["launches"].get(kname, 0))
     print(f"phase H (llama3-8b) took {ring['phase_s']:.1f} s", flush=True)
     out["ring"] = ring
+    return out
+
+
+def serve_moe(torch, dev, kernels: dict) -> dict:
+    """Phase I (``tools/moe_lm.py``): phi3.5-moe served and expert-parallel,
+    one grok-1 MoE FFN; its launches join the summary line's."""
+    import moe_lm
+    import ring_lm
+
+    t0 = time.perf_counter()
+    try:
+        out = moe_lm.moe_phase(torch, dev, hbm_bytes_per_s=HBM_BYTES_PER_S)
+    except ring_lm.PhaseFailure as e:
+        fail(f"phase I: {e}")
+    out["phase_s"] = time.perf_counter() - t0
+    add_launches(kernels["flash_attention"], "phi3.5-moe serving (I1)",
+                 out["serve"]["launches"].get("flash_attention", 0))
+    add_launches(kernels["flash_attention"], "phi3.5-moe expert-parallel logits (I2)",
+                 out["ep"]["launches_total"].get("flash_attention", 0))
+    for kname in ("copy_convert", "gather_pack"):
+        add_launches(kernels[kname], "MoE expert dispatch and return (I2, I3)",
+                     out["ep"]["launches_total"].get(kname, 0)
+                     + out["grok"]["launches_total"].get(kname, 0))
+    print(f"phase I took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2198,7 +2248,12 @@ def main() -> int:
     # -- D. serving rwkv6-1.6b at full width: the third main path ------------
     record["rwkv_serving"] = serve_rwkv(torch, dev, kernels)
     gc.collect()
-    torch.cuda.empty_cache()  # the rwkv6 weights go before phase E
+    torch.cuda.empty_cache()  # the rwkv6 weights go before phase I
+
+    # -- I. the MoE model: phi3.5-moe served and expert-parallel, grok-1 -------
+    record["moe"] = serve_moe(torch, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()  # the phi and grok weights go before phase E
 
     # -- E. the §VI sweep on the card: smoke grid, card grid, auto ------------
     out_dir = ROOT / "chiprun_out"

@@ -1,7 +1,8 @@
 """Architecture registry of the PyTorch port: importing this package
 registers the architectures whose models are ported: the dense decoders
-that ``repro_torch.models.transformer`` runs and the RWKV-6 model of
-``repro_torch.models.rwkv`` (the other families of the JAX package's
+that ``repro_torch.models.transformer`` runs, the RWKV-6 model of
+``repro_torch.models.rwkv`` and the MoE decoders of
+``repro_torch.models.moe`` (the other families of the JAX package's
 registry wait for their slice)."""
 
 from repro_torch.configs.base import (  # noqa: F401
@@ -19,7 +20,9 @@ from repro_torch.configs.base import (  # noqa: F401
 # one module per architecture (imports register into the registry)
 from repro_torch.configs import (  # noqa: F401
     granite_8b,
+    grok_1_314b,
     llama3_8b,
+    phi3_5_moe_42b,
     qwen2_5_14b,
     rwkv6_1_6b,
     stablelm_1_6b,

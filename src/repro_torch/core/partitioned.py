@@ -432,10 +432,29 @@ def _psum_scatter(x: torch.Tensor, mesh: VirtualMesh, axis_name: str,
     return _from_axis_major(torch.stack(total.chunk(k, dim=scatter_axis + 1)), mesh, axis_name)
 
 
-def _psum(x: torch.Tensor, mesh: VirtualMesh, axis_name: str) -> torch.Tensor:
+def _index_groups(groups: Sequence[Sequence[int]], k: int) -> list[list[int]]:
+    """``axis_index_groups`` as JAX takes them: groups of equal size that
+    cover every index of the axis once."""
+    groups = [[int(i) for i in g] for g in groups]
+    if sorted(i for g in groups for i in g) != list(range(k)) or len({len(g) for g in groups}) != 1:
+        raise ValueError(f"axis_index_groups {groups} must split the {k} axis indices into "
+                         f"groups of equal size")
+    return groups
+
+
+def _psum(x: torch.Tensor, mesh: VirtualMesh, axis_name: str,
+          axis_index_groups: Sequence[Sequence[int]] | None = None) -> torch.Tensor:
+    """``lax.psum`` over the stacked ranks; with ``axis_index_groups`` each
+    rank gets the sum over its group of axis indices alone."""
     k = axis_size(mesh, axis_name)
-    total = _axis_major(x, mesh, axis_name).sum(0)
-    return _from_axis_major(total.expand(k, *total.shape), mesh, axis_name)
+    xa = _axis_major(x, mesh, axis_name)  # (k, G, *local)
+    if axis_index_groups is None:
+        total = xa.sum(0)
+        return _from_axis_major(total.expand(k, *total.shape), mesh, axis_name)
+    out = torch.empty_like(xa)
+    for g in _index_groups(axis_index_groups, k):
+        out[g] = xa[g].sum(0)
+    return _from_axis_major(out, mesh, axis_name)
 
 
 def partitioned_psum_scatter(
@@ -467,12 +486,15 @@ def partitioned_psum(
     *,
     n_parts: int = 1,
     chunk_axis: int = 0,
+    axis_index_groups: Sequence[Sequence[int]] | None = None,
 ) -> torch.Tensor:
-    """All-reduce chunked into ``n_parts`` bucket collectives."""
+    """All-reduce chunked into ``n_parts`` bucket collectives; with
+    ``axis_index_groups`` (``lax.psum``'s) within each group of axis
+    indices alone (the MoE hidden-split slots' partial sums)."""
     if n_parts <= 1:
-        return _psum(x, mesh, axis_name)
+        return _psum(x, mesh, axis_name, axis_index_groups)
     part = Partitioner(n_parts, chunk_axis + 1)
-    outs = [_psum(c, mesh, axis_name) for c in part.split(x)]
+    outs = [_psum(c, mesh, axis_name, axis_index_groups) for c in part.split(x)]
     return part.merge(outs, x.shape[chunk_axis + 1])
 
 

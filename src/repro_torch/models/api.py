@@ -6,9 +6,9 @@
     logits, cache = model.prefill(params, {"tokens": tokens}, cache)
     logits, cache = model.decode_step(params, token, cache)
 
-The dense and rwkv families are ported; the others raise.  A caller may
-inject the kernel a family runs: ``attention=`` for the dense decoder's
-prefill attention, ``wkv=`` for the RWKV scan (e.g. their plain versions
+The dense, moe and rwkv families are ported; the others raise.  A caller
+may inject the kernel a family runs: ``attention=`` for the dense and MoE
+decoders' prefill attention, ``wkv=`` for the RWKV scan (e.g. their plain versions
 for a comparison run on the card).
 """
 
@@ -21,12 +21,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import resolve_device
-from repro_torch.models import rwkv, transformer
+from repro_torch.models import moe, rwkv, transformer
 from repro_torch.models.layers import AttentionFn
 from repro_torch.models.rwkv import WkvFn
 from repro_torch.parallel.context import LOCAL, ParallelContext
 
-_FAMILY_MODULES = {"dense": transformer, "rwkv": rwkv}
+_FAMILY_MODULES = {"dense": transformer, "moe": moe, "rwkv": rwkv}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +86,8 @@ class Model:
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None, *,
                 attention: AttentionFn | None = None, wkv: WkvFn | None = None) -> Model:
     """The model of ``cfg`` on ``device`` (None: the card; a missing card
-    raises).  ``attention`` replaces the dense decoder's local attention
-    function, ``wkv`` the RWKV scan, e.g. by ``attention_plain`` or
+    raises).  ``attention`` replaces the dense and MoE decoders' local
+    attention function, ``wkv`` the RWKV scan, e.g. by ``attention_plain`` or
     ``wkv_plain`` for a comparison run on the card."""
     module = _FAMILY_MODULES.get(cfg.family)
     if module is None:

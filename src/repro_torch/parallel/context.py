@@ -17,8 +17,17 @@ tensor (:func:`shard_ranks`), where JAX shards over devices inside
   the partitioned ring collective-matmuls
   (:func:`repro_torch.models.layers.apply_mlp_ring`).
 
-``moe_mode``/``moe_comm`` wait for the MoE model (ROADMAP Queue 1 item 11,
-its MoE half); a mesh over several processes is refused (item 17).
+* ``moe_mode="ep"``: the MoE FFN is expert-parallel over ``model_axis``
+  (:mod:`repro_torch.models.moe`): tokens sequence-sharded over the axis,
+  the dispatch and return through
+  :func:`~repro_torch.core.partitioned.partitioned_all_to_all`
+  (``moe_comm="native"``) or
+  :func:`~repro_torch.core.partitioned.message_all_to_all`
+  (``moe_comm="messages"``, with ``comm_packer``/``comm_coalesce``), in
+  ``n_parts`` chunks with the expert FFN as each chunk's consumer.  The axis
+  must hold one rank a slot (:func:`check_ep_mesh`).
+
+A mesh over several processes is refused (ROADMAP Queue 1 item 17).
 ``use_flash`` is kept for field parity but selects nothing: the port's
 local attention takes the CUDA flash kernel for a CUDA tensor and the
 plain version for a CPU tensor, whatever the context says.
@@ -121,3 +130,14 @@ def model_shards(w: torch.Tensor, ctx: ParallelContext, dim: int) -> torch.Tenso
         raise ValueError(f"dim {dim} of {tuple(w.shape)} does not split over {k} ranks")
     shards = w.unflatten(dim, (k, n // k)).movedim(dim, 0)
     return shards if ctx.mesh.size == k else shards[mi]
+
+
+def check_ep_mesh(ctx: ParallelContext, slots: int) -> None:
+    """Refuse an expert-parallel context whose model axis does not hold
+    exactly one rank per expert slot.  The JAX layer takes slot ``[0]`` of
+    each rank's weight shard, so there it runs on any divisor of the slot
+    count but is right only at one slot a rank; the port raises instead."""
+    if ctx.model_size != slots:
+        raise ValueError(
+            f"moe_mode='ep' needs one expert slot a rank of the model axis "
+            f"{ctx.model_axis!r}: the axis has {ctx.model_size} ranks, the model {slots} slots")

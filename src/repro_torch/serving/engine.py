@@ -17,8 +17,11 @@ running batch (continuous batching).
 Under a sequence-parallel ``ctx`` (a :class:`~repro_torch.core.mesh.
 VirtualMesh` with ``seq_parallel=True``) a dense prefill runs ring
 attention over the model axis; a bucket the ring size does not divide is
-refused with ``ValueError``, as JAX's ``shard_map`` refuses it.  Decode
-runs as without the context.
+refused with ``ValueError``, as JAX's ``shard_map`` refuses it.  Under
+``moe_mode="ep"`` a MoE prefill dispatches its tokens to the experts over
+the model axis, and a prompt the axis does not divide is refused the same
+way.  Decode runs as without the context (the MoE decode step is the
+dropless one).
 
 The decode batch is fixed-size: empty slots decode padding tokens whose
 outputs are ignored.  The engine's cache lives on the model's device and is
@@ -161,7 +164,8 @@ class ServingEngine:
 
         Only the dense transformer prefills bucketed, as in the JAX engine:
         the other families are length-sensitive (RWKV's recurrent state
-        would run on through the padding), so they prefill at the exact
+        would run on through the padding, MoE capacity routing would count
+        the padding's tokens), so they prefill at the exact
         length, one plan per distinct length.
         """
         if self.model.cfg.family != "dense":

@@ -53,9 +53,9 @@ def test_config_field_equal_to_jax(name, reduced):
 def test_other_families_raise():
     from repro_torch.configs.base import ModelConfig as Cfg
 
-    moe = Cfg(name="m", family="moe", n_layers=1, d_model=8, d_ff=8, vocab_size=8)
+    ssm = Cfg(name="m", family="ssm", n_layers=1, d_model=8, d_ff=8, vocab_size=8)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(moe, "cpu")
+        build_model(ssm, "cpu")
 
 
 def _cfgs(name: str, dtype: str):

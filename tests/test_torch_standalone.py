@@ -19,7 +19,7 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "stencil_heat3d_torch.py",
-    ROOT / "tools" / "ring_lm.py"]
+    ROOT / "tools" / "ring_lm.py", ROOT / "tools" / "moe_lm.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -53,7 +53,9 @@ def test_port_has_modules_and_smoke_script():
                      "src/repro_torch/launch/membership.py",
                      "src/repro_torch/launch/elastic.py",
                      "src/repro_torch/core/partitioned.py", "src/repro_torch/core/ring.py",
-                     "tools/ring_lm.py",
+                     "tools/ring_lm.py", "tools/moe_lm.py", "src/repro_torch/models/moe.py",
+                     "src/repro_torch/configs/phi3_5_moe_42b.py",
+                     "src/repro_torch/configs/grok_1_314b.py",
                      "examples/stencil_heat3d_torch.py"):
         assert required in names
 

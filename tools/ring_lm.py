@@ -143,11 +143,12 @@ def exchange_share(trace: dict) -> dict:
 
 
 def near_ties(torch, logits_at, model, params, prompts, got_tokens, want_tokens, max_len,
-              fails) -> tuple:
-    """Requests equal, and at each first difference the local logits' gap
-    between the two tokens (a failure above ``TIE_TOL * (1 + |logit|)``);
-    ``logits_at(torch, model, params, prompt, prefix, max_len)`` gives the
-    local model's logits after ``prompt + prefix``."""
+              fails, labels=("ring", "local")) -> tuple:
+    """Requests equal, and at each first difference the reference logits'
+    gap between the two tokens (a failure above ``TIE_TOL * (1 +
+    |logit|)``); ``logits_at(torch, model, params, prompt, prefix,
+    max_len)`` gives the reference model's logits after ``prompt +
+    prefix``; ``labels`` name the two runs (got, want)."""
     equal, ties = 0, []
     for prompt, got, want in zip(prompts, got_tokens, want_tokens):
         if got == want:
@@ -157,11 +158,11 @@ def near_ties(torch, logits_at, model, params, prompts, got_tokens, want_tokens,
         logits = logits_at(torch, model, params, prompt, got[:i], max_len)
         la, lb = logits[got[i]].item(), logits[want[i]].item()
         gap, tol = abs(la - lb), TIE_TOL * (1 + max(abs(la), abs(lb)))
-        ties.append(dict(prompt_len=len(prompt), step=i, ring_token=got[i], local_token=want[i],
-                         logit_gap=gap, tol=tol))
+        ties.append({"prompt_len": len(prompt), "step": i, f"{labels[0]}_token": got[i],
+                     f"{labels[1]}_token": want[i], "logit_gap": gap, "tol": tol})
         if gap > tol:
-            fails.append(f"prompt of {len(prompt)}: ring tokens differ at step {i} and the local "
-                         f"logits are {gap} apart (tol {tol}): not a near tie")
+            fails.append(f"prompt of {len(prompt)}: {labels[0]} tokens differ at step {i} and the "
+                         f"{labels[1]} logits are {gap} apart (tol {tol}): not a near tie")
     return equal, ties
 
 
@@ -184,19 +185,42 @@ def skipped_block_fault(sq_block: int):
     return attend
 
 
+def exchange_kernel_checks(torch, prepared, x, y) -> dict:
+    """``gather_pack`` of every coalesced cell of the ``cuda``
+    ``PreparedExchange`` ``prepared`` on the block ``x`` against
+    ``gather_pack_ref``, and each of its windows unpacked by
+    ``copy_convert`` into a copy of the block ``y`` against
+    ``unpack_2d_ref`` (the block's other elements untouched), bitwise."""
+    from repro_torch.core.transport import window
+    from repro_torch.kernels.pack.pack import copy_convert, gather_pack
+    from repro_torch.kernels.pack.ref import gather_pack_ref, unpack_2d_ref
+
+    cells = packs = windows = unpacks = 0
+    for cell in (c for group in prepared._groups for r in group for c in r):
+        lay = cell.layout
+        wire = gather_pack(x, cell.table, torch.empty_like(cell.send))
+        cells += 1
+        packs += torch.equal(wire, gather_pack_ref(x, lay.segments, total=lay.total,
+                                                   out_dtype=wire.dtype))
+        for seg in lay.segments:
+            windows += 1
+            buf = wire[:, seg.offset:seg.offset + seg.numel].unflatten(1, seg.shape)
+            got, want = y.clone(), y.clone()
+            copy_convert(buf, window(got, seg.dst_start, seg.shape))
+            window(want, seg.dst_start, seg.shape).copy_(unpack_2d_ref(buf, out_dtype=y.dtype))
+            unpacks += torch.equal(got, want)
+    return dict(cells=cells, gather_pack_equal=packs, windows=windows,
+                copy_convert_windows_equal=unpacks)
+
+
 def kv_kernel_checks(torch, mesh) -> list[dict]:
     """``gather_pack`` and ``copy_convert`` held bitwise against their plain
     versions at the shapes the ring prefills gave them: for every coalesced
     ``cuda`` KV hop plan on ``mesh`` in the plan registry (one a served
-    bucket and ``n_parts``), each round's wire buffer packed by the kernel
-    from random bf16 K and V against ``gather_pack_ref``, each of its
-    windows unpacked by the kernel into another random block against
-    ``unpack_2d_ref`` (the block's other elements untouched), and the whole
-    hop against the ring shift of the block (rank i + 1 gets rank i's)."""
+    bucket and ``n_parts``), :func:`exchange_kernel_checks` on random bf16
+    K and V, and the whole hop against the ring shift of the block (rank
+    i + 1 gets rank i's)."""
     from repro_torch.core.plan import PLANS
-    from repro_torch.core.transport import window
-    from repro_torch.kernels.pack.pack import copy_convert, gather_pack
-    from repro_torch.kernels.pack.ref import gather_pack_ref, unpack_2d_ref
 
     g = torch.Generator(mesh.device).manual_seed(21)
     rows = []
@@ -207,27 +231,11 @@ def kv_kernel_checks(torch, mesh) -> list[dict]:
         ex = plan.exchange
         shape = (ex.ranks, *ex.local_shape)
         x, y = (torch.randn(shape, generator=g, device=mesh.device).to(key[4]) for _ in range(2))
-        cells = packs = windows = unpacks = 0
-        for rounds in ex._groups:
-            for cell in (c for r in rounds for c in r):
-                lay = cell.layout
-                wire = gather_pack(x, cell.table, torch.empty_like(cell.send))
-                cells += 1
-                packs += torch.equal(wire, gather_pack_ref(x, lay.segments, total=lay.total,
-                                                           out_dtype=wire.dtype))
-                for seg in lay.segments:
-                    windows += 1
-                    buf = wire[:, seg.offset:seg.offset + seg.numel].unflatten(1, seg.shape)
-                    got, want = y.clone(), y.clone()
-                    copy_convert(buf, window(got, seg.dst_start, seg.shape))
-                    window(want, seg.dst_start, seg.shape).copy_(unpack_2d_ref(buf,
-                                                                               out_dtype=y.dtype))
-                    unpacks += torch.equal(got, want)
+        checks = exchange_kernel_checks(torch, ex, x, y)
         hop = x.clone()
         plan.start(hop)
-        rows.append(dict(kv_shape=list(shape), n_parts=key[5], rounds=cells,
-                         gather_pack_equal=packs, windows=windows,
-                         copy_convert_windows_equal=unpacks, hop_equal=bool(torch.equal(hop, torch.roll(x, 1, 0)))))
+        rows.append(dict(kv_shape=list(shape), n_parts=key[5], **checks,
+                         hop_equal=bool(torch.equal(hop, torch.roll(x, 1, 0)))))
     return rows
 
 
@@ -348,7 +356,7 @@ def llama_ring(torch, dev, model, params, prompts, local_tokens, *, slots: int, 
         fails.append(f"{len(checks)} cuda KV hop plans checked, one a served bucket and n_parts "
                      f"expected")
     for c in checks:
-        if (c["gather_pack_equal"] != c["rounds"] or c["copy_convert_windows_equal"]
+        if (c["gather_pack_equal"] != c["cells"] or c["copy_convert_windows_equal"]
                 != c["windows"] or not c["hop_equal"]):
             fails.append(f"pack kernels at the KV hop {c}: not bitwise equal")
 
