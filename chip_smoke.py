@@ -2,8 +2,9 @@
 """Drive the PyTorch port's main paths on one NVIDIA GPU: the halo
 exchange (heat3d), its §VI sweep, its multi-process grid and its elastic
 recovery, llama3-8b serving and rwkv6-1.6b serving, both models
-sequence-parallel on a virtual ring of 8 ranks, and the MoE model:
-phi3.5-moe served and expert-parallel over 16 ranks, one grok-1 MoE FFN.
+sequence-parallel on a virtual ring of 8 ranks, the MoE model:
+phi3.5-moe served and expert-parallel over 16 ranks, one grok-1 MoE FFN,
+and the LM serve bench with the collective count of its ring prefill.
 
     python3 chip_smoke.py
 
@@ -149,7 +150,7 @@ F. The paper's process axis on the one card: (1) a grid of 2 processes
    and the intra/inter-node sends (a node is a process: real crossings);
    (2) phase E's 8-rank slab with ``processes=2`` (three sizes, five
    strategies, ``slice``/``cuda``, coalesce off/on, ``n_parts`` 1 and 4,
-   50 x 3 cycles) written to ``chiprun_out/BENCH_torch_stencil_sweep_p2.json``
+   30 x 3 cycles) written to ``chiprun_out/BENCH_torch_stencil_sweep_p2.json``
    (copied to the repository root and committed), its exact cells'
    checksums within 1e-12 of the one-process grid's.  A failed rank fails
    the run.
@@ -238,6 +239,27 @@ I. The MoE model (``tools/moe_lm.py``), after phase D, on a ``(1, 16)``
    ``_moe_dense`` at no-drop capacity, which a planted fault (the partner
    slot left out of the psum) must exceed.  The weights are freed before
    phase E.  Its launches join the summary line's (``launches_by_path``).
+J. The LM serve bench and the paper's communication accounting
+   (``tools/serve_bench_lm.py``), after phase I: (J1)
+   ``repro_torch.serving.bench``'s CLI at the full width of stablelm-1.6b
+   (random bf16 weights from seed 0, 3.3 GB) on the ``(1, 8)`` ring, 6
+   requests of 1025-2040 prompt tokens (one 2048 bucket), 2 slots, 8 new
+   tokens, ``max_len`` 2048: ``--out`` (the three cells), ``--out
+   --trace`` on that file (adds the ``auto`` cell), then ``--check``
+   against it, which must pass with its ``auto`` cell replaying the trace
+   cell; the file is ``chiprun_out/BENCH_torch_lm_serve.json`` (copied to
+   the repository root and committed).  Every serve's tokens equal; tokens
+   against a local engine on the same weights, equal or a near tie; the
+   pack kernels counted from 0 at each serve, layers x 7 hops a prefill in
+   a ``bf16`` cell, none in a ``slice`` cell; ``gather_pack`` and each
+   ``copy_convert`` window bitwise against their plain versions at the
+   ``bf16`` cell's KV hop; tokens/s, us a decode step and prefill ms a
+   cell.  (J2) ``count_collectives`` around one eager 2048-token ring
+   prefill equal to each cell's ``collective_count`` (its wire bytes the
+   bf16 KV's), around one eager step a strategy at phase 4's heat3d layout
+   equal to ``scheduled_collectives``; ``roofline(..., hw=H100)`` of the
+   ring prefill beside its measured time.  Its launches join the summary
+   line's under ``"J"``.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -307,13 +329,14 @@ AUTO_CYCLES = 3
 DECODE_STEPS = 20
 #: phase F: processes of the grid on the one card, its heat3d cells' timed
 #: cycles, the reference check's size, and the p2 sweep slab (phase E's
-#: 8-rank slab) with its cycles (cut from phase E's 200 x 3 to keep the
-#: phase near two minutes: a grid cycle crosses gloo on the host)
+#: 8-rank slab) with its cycles (cut from phase E's 200 x 3, and from 50
+#: x 3 to 30 x 3 when phase J joined, to keep the script near half its
+#: time limit: a grid cycle crosses gloo on the host)
 GRID_PROCESSES = 2
 GRID_CYCLES, GRID_REPEATS = 50, 3
 GRID_REF_SIZE = (64, 64, 64)
 P2_PARTS = (1, 4)
-P2_CYCLES, P2_REPEATS = 50, 3
+P2_CYCLES, P2_REPEATS = 30, 3
 GRID_TIMEOUT = 600.0
 #: phase G: the elastic runner's steps, the failing step and checkpoint
 #: interval of each leg, and the bound of G4's grid (G1, G2: 8 ranks lose
@@ -631,6 +654,34 @@ def serve_moe(torch, dev, kernels: dict) -> dict:
                      out["ep"]["launches_total"].get(kname, 0)
                      + out["grok"]["launches_total"].get(kname, 0))
     print(f"phase I took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def serve_bench(torch, dev, kernels: dict, out_dir: pathlib.Path) -> dict:
+    """Phase J (``tools/serve_bench_lm.py``): the LM serve bench at
+    stablelm-1.6b's full width through its CLI, and the collective count of
+    a ring prefill and of one heat3d step a strategy (phase 4's layout and
+    update); its pack launches join the summary line's under ``"J"``."""
+    import ring_lm
+    import serve_bench_lm
+
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.kernels.stencil27.ref import jacobi_weights
+    from repro_torch.stencil import Domain
+    from repro_torch.stencil.heat3d import DOMAIN_AXES, heat3d_update
+
+    dom = Domain(make_mesh(*MESH, device=dev), GLOBAL_INTERIOR, DOMAIN_AXES)
+    update = heat3d_update(jacobi_weights().numpy(), dev)
+    t0 = time.perf_counter()
+    try:
+        out = serve_bench_lm.serve_bench_phase(torch, dev, out_dir, dom, update,
+                                               logits_at=plain_logits_at)
+    except ring_lm.PhaseFailure as e:
+        fail(f"phase J: {e}")
+    out["phase_s"] = time.perf_counter() - t0
+    for kname in ("copy_convert", "gather_pack"):
+        add_launches(kernels[kname], "J", out["launches"].get(kname, 0))
+    print(f"phase J took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2253,11 +2304,16 @@ def main() -> int:
     # -- I. the MoE model: phi3.5-moe served and expert-parallel, grok-1 -------
     record["moe"] = serve_moe(torch, dev, kernels)
     gc.collect()
-    torch.cuda.empty_cache()  # the phi and grok weights go before phase E
+    torch.cuda.empty_cache()  # the phi and grok weights go before phase J
 
-    # -- E. the §VI sweep on the card: smoke grid, card grid, auto ------------
+    # -- J. the LM serve bench and the collective count -------------------------
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    record["serve_bench"] = serve_bench(torch, dev, kernels, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- E. the §VI sweep on the card: smoke grid, card grid, auto ------------
     record["sweep"] = sweep_phase(torch, dev, out_dir)
     torch.cuda.empty_cache()
 

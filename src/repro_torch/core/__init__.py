@@ -5,6 +5,8 @@
 #   halo      — N-D ghost-cell exchange schedules
 #   partitioned — chunked early-consume collectives (MPI partitioned analogue)
 #   ring      — ring attention + recurrent-state passing (LM integrations)
+#   model_comm    — analytic LogGP-style model of the paper's measurements
+#   comm_analysis — collective counts and wire bytes of a call + roofline terms
 
 from repro_torch.core.compat import resolve_device
 from repro_torch.core.mesh import VirtualMesh, make_mesh
@@ -36,6 +38,21 @@ from repro_torch.core.partitioned import (
     ring_perm,
 )
 from repro_torch.core.ring import ring_attention, state_passing
+from repro_torch.core.model_comm import (
+    MachineModel,
+    StencilWorkload,
+    TimeBreakdown,
+    simulate,
+    speedup,
+)
+from repro_torch.core.comm_analysis import (
+    H100,
+    V5E,
+    Hardware,
+    RooflineTerms,
+    count_collectives,
+    roofline,
+)
 
 __all__ = [
     "resolve_device", "VirtualMesh", "make_mesh",
@@ -47,4 +64,6 @@ __all__ = [
     "partitioned_psum_scatter", "ring_all_gather", "ring_all_gather_matmul",
     "ring_matmul_reduce_scatter", "bucketed_psum_tree", "ring_perm",
     "ring_attention", "state_passing",
+    "MachineModel", "StencilWorkload", "TimeBreakdown", "simulate", "speedup",
+    "count_collectives", "roofline", "RooflineTerms", "Hardware", "V5E", "H100",
 ]

@@ -37,6 +37,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from repro_torch.core import transport as _transport
 from repro_torch.core.mesh import VirtualMesh
 from repro_torch.core.transport import (
     Message,
@@ -279,6 +280,8 @@ def _all_to_all(x: torch.Tensor, mesh: VirtualMesh, axis_name: str, split_axis: 
     pieces = xa.chunk(k, dim=split_axis + 2)  # pieces[dst]: (k_src, G, ...)
     out = torch.stack([torch.cat(pieces[dst].unbind(0), dim=concat_axis + 1)
                        for dst in range(k)])
+    if _transport.OP_LOG is not None:
+        _transport.log_collective("all-to-all", x, k)
     return _from_axis_major(out, mesh, axis_name)
 
 
@@ -429,7 +432,10 @@ def _psum_scatter(x: torch.Tensor, mesh: VirtualMesh, axis_name: str,
     if total.shape[scatter_axis + 1] % k:
         raise ValueError(f"axis {scatter_axis} of {tuple(x.shape[1:])} does not split over "
                          f"{k} ranks of axis {axis_name!r}")
-    return _from_axis_major(torch.stack(total.chunk(k, dim=scatter_axis + 1)), mesh, axis_name)
+    out = _from_axis_major(torch.stack(total.chunk(k, dim=scatter_axis + 1)), mesh, axis_name)
+    if _transport.OP_LOG is not None:
+        _transport.log_collective("reduce-scatter", out, k)
+    return out
 
 
 def _index_groups(groups: Sequence[Sequence[int]], k: int) -> list[list[int]]:
@@ -447,12 +453,15 @@ def _psum(x: torch.Tensor, mesh: VirtualMesh, axis_name: str,
     """``lax.psum`` over the stacked ranks; with ``axis_index_groups`` each
     rank gets the sum over its group of axis indices alone."""
     k = axis_size(mesh, axis_name)
+    groups = None if axis_index_groups is None else _index_groups(axis_index_groups, k)
+    if _transport.OP_LOG is not None:
+        _transport.log_collective("all-reduce", x, k if groups is None else len(groups[0]))
     xa = _axis_major(x, mesh, axis_name)  # (k, G, *local)
-    if axis_index_groups is None:
+    if groups is None:
         total = xa.sum(0)
         return _from_axis_major(total.expand(k, *total.shape), mesh, axis_name)
     out = torch.empty_like(xa)
-    for g in _index_groups(axis_index_groups, k):
+    for g in groups:
         out[g] = xa[g].sum(0)
     return _from_axis_major(out, mesh, axis_name)
 

@@ -561,6 +561,32 @@ class ScaledInt8Packer(Packer):
 
 
 # ---------------------------------------------------------------------------
+# the collective log (read by repro_torch.core.comm_analysis)
+# ---------------------------------------------------------------------------
+
+#: while a list, every collective issued eagerly appends ``(op, bytes,
+#: group)`` to it: the op under its HLO name (``"collective-permute"``,
+#: ``"all-reduce"``, ``"reduce-scatter"``, ``"all-to-all"``), one rank's
+#: result bytes, and the group size (``None`` for a permute).
+#: :func:`repro_torch.core.comm_analysis.count_collectives` switches it on
+#: for one call; while it is ``None`` a call site costs one module-level
+#: check and nothing else.
+OP_LOG: list | None = None
+
+
+def log_collective(op: str, out: torch.Tensor, group: int | None = None) -> None:
+    """Append one collective whose per-rank result is a row of the stacked
+    ``out`` to :data:`OP_LOG` (call it only while the log is on).  A group
+    of one rank moves nothing and is no collective; nothing is logged
+    during a CUDA graph capture, since a replay runs no Python to log it."""
+    if group is not None and group <= 1:
+        return
+    if out.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    OP_LOG.append((op, out.numel() // max(1, out.shape[0]) * out.element_size(), group))
+
+
+# ---------------------------------------------------------------------------
 # Transport: how packed buffers cross the mesh
 # ---------------------------------------------------------------------------
 
@@ -630,6 +656,8 @@ class Transport(abc.ABC):
 
     def move(self, buf: torch.Tensor, route: Route, out: torch.Tensor | None = None) -> torch.Tensor:
         """One collective, started and completed."""
+        if OP_LOG is not None:
+            log_collective("collective-permute", buf)
         return self.wait(self.start(buf, route, out))
 
     def permute(self, buf: torch.Tensor, mesh: VirtualMesh, axis_name,
@@ -1102,6 +1130,8 @@ class PreparedExchange:
                 for c in cells:
                     p.pack_coalesced(x, c.layout, table=c.table, out=c.send)
                 for c in cells:
+                    if OP_LOG is not None and c.route is not None:
+                        log_collective("collective-permute", c.send)
                     started.append((c, None if c.route is None
                                     else t.start(c.send, c.route, out=c.recv)))
             for c, pending in started:

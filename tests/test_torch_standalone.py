@@ -19,7 +19,8 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "stencil_heat3d_torch.py",
-    ROOT / "tools" / "ring_lm.py", ROOT / "tools" / "moe_lm.py"]
+    ROOT / "tools" / "ring_lm.py", ROOT / "tools" / "moe_lm.py",
+    ROOT / "tools" / "serve_bench_lm.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -56,7 +57,11 @@ def test_port_has_modules_and_smoke_script():
                      "tools/ring_lm.py", "tools/moe_lm.py", "src/repro_torch/models/moe.py",
                      "src/repro_torch/configs/phi3_5_moe_42b.py",
                      "src/repro_torch/configs/grok_1_314b.py",
-                     "examples/stencil_heat3d_torch.py"):
+                     "examples/stencil_heat3d_torch.py",
+                     "src/repro_torch/core/model_comm.py",
+                     "src/repro_torch/configs/comb_paper.py",
+                     "src/repro_torch/core/comm_analysis.py",
+                     "src/repro_torch/serving/bench.py", "tools/serve_bench_lm.py"):
         assert required in names
 
 
@@ -64,6 +69,19 @@ def test_port_has_modules_and_smoke_script():
 def test_no_jax_or_reference_package_import(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_serve_bench_raises_without_cuda():
+    """The serve bench's CLI takes the card by default, as the other entry
+    points do."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.serving.bench import main, serve_once
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--requests", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve_once(requests=1)
 
 
 def test_kernel_sources_are_built_not_committed_binaries():

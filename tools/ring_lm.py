@@ -213,19 +213,20 @@ def exchange_kernel_checks(torch, prepared, x, y) -> dict:
                 copy_convert_windows_equal=unpacks)
 
 
-def kv_kernel_checks(torch, mesh) -> list[dict]:
+def kv_kernel_checks(torch, mesh, packers=("cuda",)) -> list[dict]:
     """``gather_pack`` and ``copy_convert`` held bitwise against their plain
     versions at the shapes the ring prefills gave them: for every coalesced
-    ``cuda`` KV hop plan on ``mesh`` in the plan registry (one a served
-    bucket and ``n_parts``), :func:`exchange_kernel_checks` on random bf16
-    K and V, and the whole hop against the ring shift of the block (rank
-    i + 1 gets rank i's)."""
+    KV hop plan of a packer in ``packers`` (the pack kernels' ``cuda``, or
+    ``bf16`` on a bf16 KV, where its wire is the KV's own dtype) on
+    ``mesh`` in the plan registry (one a served bucket and ``n_parts``),
+    :func:`exchange_kernel_checks` on random bf16 K and V, and the whole
+    hop against the ring shift of the block (rank i + 1 gets rank i's)."""
     from repro_torch.core.plan import PLANS
 
     g = torch.Generator(mesh.device).manual_seed(21)
     rows = []
     for key in PLANS.keys():
-        if key[0] != "ring_kv" or key[1] != mesh or key[6].name != "cuda" or not key[8]:
+        if key[0] != "ring_kv" or key[1] != mesh or key[6].name not in packers or not key[8]:
             continue
         plan = PLANS._plans[key]
         ex = plan.exchange
@@ -234,7 +235,7 @@ def kv_kernel_checks(torch, mesh) -> list[dict]:
         checks = exchange_kernel_checks(torch, ex, x, y)
         hop = x.clone()
         plan.start(hop)
-        rows.append(dict(kv_shape=list(shape), n_parts=key[5], **checks,
+        rows.append(dict(kv_shape=list(shape), n_parts=key[5], packer=key[6].name, **checks,
                          hop_equal=bool(torch.equal(hop, torch.roll(x, 1, 0)))))
     return rows
 
