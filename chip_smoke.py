@@ -4,7 +4,9 @@ exchange (heat3d), its §VI sweep, its multi-process grid and its elastic
 recovery, llama3-8b serving and rwkv6-1.6b serving, both models
 sequence-parallel on a virtual ring of 8 ranks, the MoE model:
 phi3.5-moe served and expert-parallel over 16 ranks, one grok-1 MoE FFN,
-and the LM serve bench with the collective count of its ring prefill.
+the LM serve bench with the collective count of its ring prefill, and the
+last model families: zamba2-1.2b served and sequence-parallel,
+llama-3.2-vision-11b served, hubert-xlarge's encoder.
 
     python3 chip_smoke.py
 
@@ -52,7 +54,13 @@ A. ``flash_attention`` against its plain version on the card at the shapes
    S = 2048 beside the plain version and
    ``F.scaled_dot_product_attention`` (the library yardstick, never on the
    path): 20 back-to-back launches between one pair of CUDA events, and
-   one launch as in earlier runs.
+   one launch as in earlier runs.  Then the last families' shapes:
+   hubert-xlarge's encoder (B 4, S 1000, 16 heads of 80, non-causal, bf16
+   and f32; the bf16 route also held to FLASH_REL_TOL against a planted
+   skipped kv tile, and timed beside the plain version and SDPA),
+   llama-3.2-vision's cross attention (512 queries on 1601 vision tokens,
+   32 heads on 8 of 128, non-causal) and zamba2's shared block (32 heads of
+   64, causal, S 2048).
 B. Serving llama3-8b at full width and depth (random bf16 weights from
    ``torch.Generator`` seed 0, about 16.1 GB on the card) through
    ``ServingEngine(max_slots=4, max_len=2048)``: 8 requests of 5-2000
@@ -260,6 +268,26 @@ J. The LM serve bench and the paper's communication accounting
    equal to ``scheduled_collectives``; ``roofline(..., hw=H100)`` of the
    ring prefill beside its measured time.  Its launches join the summary
    line's under ``"J"``.
+K. The last model families (``tools/families_lm.py``), after phase J, at
+   full width and depth (random bf16 weights from seed 0): (K1) zamba2-1.2b
+   (2.4 GB) through ``ServingEngine(max_slots=4, max_len=2048)``, 8
+   requests of 5-2016 prompt tokens (lengths the SSD scan takes), 16 new
+   each: ``flash_attention`` 6 times a prefill, tokens against the
+   plain-attention engine (equal or a near tie) and the eager decode
+   (equal), prefill ms, decode ms eager and graph, tokens per second, idle
+   shares; (K2) its 2048-token logits in f32 on a ``(1, 8)`` ring under
+   ``seq_parallel`` (``state_method`` ``ring`` and ``tree``) within
+   ``families_lm.SEQ_REL_TOL`` of the local logits, which planted faults
+   (ghost cells zeroed, the incoming SSD state dropped) must exceed, and
+   ``seq_left_halo`` at its conv shapes with packer ``cuda`` bitwise equal
+   to ``slice`` at ``n_parts`` 1 and 3, launches counted; (K3)
+   llama-3.2-vision-11b (19.6 GB) with K1's requests and checks,
+   ``flash_attention`` 40 times a prefill, and with the gates at 0.5 and a
+   random image one prefill and one logits call against plain attention,
+   the logits moved from the closed gates'; (K4) hubert-xlarge (1.9 GB)
+   ``encode`` of 4 x 1000 frames, ``flash_attention`` 48 times at head dim
+   80, against plain attention, ms a call.  Its flash launches join the
+   summary line's under ``"K"``.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -303,6 +331,8 @@ FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 #: late half; a skipped kv tile must read above it
 FLASH_REL_TOL = 5e-3
 FLASH_FAULT_KEYS = (1024, 1088)
+#: the kv tile left out of hubert-xlarge's non-causal D = 80 case
+FLASH_FAULT_KEYS_D80 = (512, 576)
 SERVE_LENGTHS = (5, 12, 100, 200, 500, 900, 1500, 2000)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 2048, 16
 #: WKV against its plain version, as tests/kernels/test_wkv.py: f32
@@ -329,14 +359,15 @@ AUTO_CYCLES = 3
 DECODE_STEPS = 20
 #: phase F: processes of the grid on the one card, its heat3d cells' timed
 #: cycles, the reference check's size, and the p2 sweep slab (phase E's
-#: 8-rank slab) with its cycles (cut from phase E's 200 x 3, and from 50
-#: x 3 to 30 x 3 when phase J joined, to keep the script near half its
-#: time limit: a grid cycle crosses gloo on the host)
+#: 8-rank slab) with its cycles (cut from phase E's 200 x 3, from 50 x 3
+#: to 30 x 3 when phase J joined and to 10 x 3 when phase K joined, to keep
+#: the script near half its time limit: a grid cycle crosses gloo on the
+#: host)
 GRID_PROCESSES = 2
 GRID_CYCLES, GRID_REPEATS = 50, 3
 GRID_REF_SIZE = (64, 64, 64)
 P2_PARTS = (1, 4)
-P2_CYCLES, P2_REPEATS = 30, 3
+P2_CYCLES, P2_REPEATS = 10, 3
 GRID_TIMEOUT = 600.0
 #: phase G: the elastic runner's steps, the failing step and checkpoint
 #: interval of each leg, and the bound of G4's grid (G1, G2: 8 ranks lose
@@ -420,17 +451,18 @@ def device_ms(torch, fn, *, flush, reps: int = 7) -> float:
     return total / reps / 1e3
 
 
-def attention_keys_dropped(torch, q, k, v, keys: tuple[int, int]):
-    """Causal attention of f32 ``(B, S, H, D)`` q and ``(B, S, Hkv, D)`` k, v
-    with the keys in ``range(*keys)`` left out of every row: what a kernel
-    that skipped that kv tile would return (a planted fault, plain PyTorch)."""
+def attention_keys_dropped(torch, q, k, v, keys: tuple[int, int], causal: bool = True):
+    """Attention (causal or not) of f32 ``(B, S, H, D)`` q and ``(B, S, Hkv,
+    D)`` k, v with the keys in ``range(*keys)`` left out of every row: what a
+    kernel that skipped that kv tile would return (a planted fault, plain
+    PyTorch)."""
     group = q.shape[2] // k.shape[2]
     qh = q.transpose(1, 2)
     kh, vh = (t.repeat_interleave(group, 2).transpose(1, 2) for t in (k, v))
     scores = (qh @ kh.mT) / math.sqrt(q.shape[-1])
     pos_q = torch.arange(q.shape[1], device=q.device)[:, None]
     pos_k = torch.arange(k.shape[1], device=q.device)[None, :]
-    keep = (pos_q >= pos_k) & ((pos_k < keys[0]) | (pos_k >= keys[1]))
+    keep = ((pos_q >= pos_k) | (not causal)) & ((pos_k < keys[0]) | (pos_k >= keys[1]))
     return (torch.softmax(scores.masked_fill(~keep, -math.inf), -1) @ vh).transpose(1, 2)
 
 
@@ -682,6 +714,25 @@ def serve_bench(torch, dev, kernels: dict, out_dir: pathlib.Path) -> dict:
     for kname in ("copy_convert", "gather_pack"):
         add_launches(kernels[kname], "J", out["launches"].get(kname, 0))
     print(f"phase J took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def families(torch, dev, kernels: dict) -> dict:
+    """Phase K (``tools/families_lm.py``): zamba2-1.2b served and
+    sequence-parallel, llama-3.2-vision-11b served, hubert-xlarge's encoder;
+    its flash launches join the summary line's under ``"K"``."""
+    import families_lm
+    import ring_lm
+
+    t0 = time.perf_counter()
+    try:
+        out = families_lm.families_phase(torch, dev, hbm_bytes_per_s=HBM_BYTES_PER_S)
+    except ring_lm.PhaseFailure as e:
+        fail(f"phase K: {e}")
+    out["phase_s"] = time.perf_counter() - t0
+    add_launches(kernels["flash_attention"], "K",
+                 sum(out[t]["launches"].get("flash_attention", 0) for t in ("K1", "K3", "K4")))
+    print(f"phase K took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2283,8 +2334,71 @@ def main() -> int:
         library_max_abs_err=sdpa_err, rel_norm_err=rel_norm, flops=flops, flop_convention="2*B*Hq*Sq*Skv*D (causal)",
         bytes=nbytes, shape=[list(q.shape), list(k.shape)],
     )
-    print("flash_attention:", json.dumps(kernels["flash_attention"]), flush=True)
     del q, k, v, qt, kt, vt, sdpa, got, want
+    torch.cuda.empty_cache()
+
+    # the last families' shapes: hubert's encoder (head dim 80, the padded
+    # tensor-core route), llama-3.2-vision's cross attention, zamba2's
+    # shared block
+    fam_cases = [("hubert-xlarge encoder, D=80, non-causal", (4, 1000, 16, 16, 80), bf16, False,
+                  None),
+                 ("hubert-xlarge encoder, D=80, non-causal (CUDA-core route)",
+                  (4, 1000, 16, 16, 80), f32, False, None),
+                 ("llama-3.2-vision cross attention, 512 queries on 1601 vision tokens",
+                  (1, 512, 32, 8, 128), bf16, False, 1601),
+                 ("zamba2-1.2b shared block, causal", (1, 2048, 32, 32, 64), bf16, True, None)]
+    for label, shape, dtype, causal, skv in fam_cases:
+        q, k, v = qkv(*shape, dtype, False, skv)
+        got = flash_attention(q, k, v, causal=causal)
+        want = attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[str(dtype)[6:]]
+        err = (got.float() - want.float()).abs().max().item()
+        if not torch.isfinite(got.float()).all() or not torch.allclose(
+                got.float(), want.float(), rtol=tol, atol=tol):
+            fail(f"flash_attention {label} q {tuple(q.shape)} {dtype}: max abs err {err}")
+        worst = max(worst, err)
+        print(f"flash_attention {label} q {tuple(q.shape)} kv {tuple(k.shape)} {str(dtype)[6:]}: "
+              f"max abs err {err} (tol {tol})", flush=True)
+    kernels["flash_attention"]["max_abs_err"] = worst
+    q, k, v = qkv(4, 1000, 16, 16, 80, bf16)
+    got = flash_attention(q, k, v, causal=False).float()
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    want = attention_plain(q32, k32, v32, causal=False)
+    fault = attention_keys_dropped(torch, q32, k32, v32, FLASH_FAULT_KEYS_D80, causal=False)
+    rel80 = {"all rows": rel(got, want), "fault": rel(fault, want)}
+    print(f"flash_attention D=80 relative-norm error vs plain f32 (tol {FLASH_REL_TOL}; fault: "
+          f"keys {FLASH_FAULT_KEYS_D80[0]}-{FLASH_FAULT_KEYS_D80[1] - 1} dropped): "
+          f"{json.dumps(rel80)}", flush=True)
+    if not rel80["all rows"] < FLASH_REL_TOL:
+        fail(f"flash_attention D=80: relative-norm error {rel80}")
+    if not rel80["fault"] > FLASH_REL_TOL:
+        fail(f"flash_attention D=80: the relative-norm check cannot see a skipped kv tile {rel80}")
+    del q32, k32, v32, fault, got, want
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    flops = 4 * q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] * q.shape[3]
+    nbytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
+
+    def kernel80():
+        return flash_attention(q, k, v, causal=False)
+
+    def sdpa80():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=False)
+
+    sdpa_err = (sdpa80().transpose(1, 2).float()
+                - attention_plain(q, k, v, causal=False).float()).abs().max().item()
+    kernels["flash_attention"]["d80"] = dict(
+        shape=[list(q.shape), list(k.shape)], causal=False, ms=time_ms_batched(torch, kernel80),
+        ms_single=time_ms(torch, kernel80),
+        plain_ms=time_ms(torch, lambda: attention_plain(q, k, v, causal=False)),
+        bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
+        library_ms=time_ms_batched(torch, sdpa80), library_ms_single=time_ms(torch, sdpa80),
+        library_max_abs_err=sdpa_err, rel_norm_err=rel80, flops=flops,
+        flop_convention="4*B*Hq*Sq*Skv*D (non-causal)", bytes=nbytes,
+        timing="as the flash entry's: ms, library_ms 20 back-to-back launches / 20; *_single one")
+    print("flash_attention:", json.dumps(kernels["flash_attention"]), flush=True)
+    del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
     # -- B. serving llama3-8b at full width: the second main path ------------
@@ -2313,6 +2427,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- K. the last model families: zamba2, llama-3.2-vision, hubert -----------
+    record["families"] = families(torch, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- E. the §VI sweep on the card: smoke grid, card grid, auto ------------
     record["sweep"] = sweep_phase(torch, dev, out_dir)
     torch.cuda.empty_cache()
@@ -2334,7 +2453,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: kd[k] for k in (*keys, "launches_by_path", "route_by_dtype")
+    print(json.dumps({"kernels": [{k: kd[k] for k in (*keys, "launches_by_path", "route_by_dtype",
+                                                      "d80")
                                    if k in kd}
                                   for kd in kernels.values()]}))
     print(nvidia_smi_line())

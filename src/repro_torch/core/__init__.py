@@ -25,7 +25,7 @@ from repro_torch.core.transport import (
     register_transport,
 )
 from repro_torch.core.plan import PLANS, CommPlan, PlanCache
-from repro_torch.core.halo import HaloSpec, exchange, exchange_fused
+from repro_torch.core.halo import HaloSpec, exchange, exchange_fused, seq_left_halo
 from repro_torch.core.partitioned import (
     bucketed_psum_tree,
     partitioned_all_to_all,
@@ -59,7 +59,7 @@ __all__ = [
     "Message", "Packer", "Partitioner", "PreparedExchange", "ScheduleInfo",
     "Transport", "available_packers", "available_transports", "get_packer",
     "get_transport", "register_packer", "register_transport",
-    "PLANS", "CommPlan", "PlanCache", "HaloSpec", "exchange", "exchange_fused",
+    "PLANS", "CommPlan", "PlanCache", "HaloSpec", "exchange", "exchange_fused", "seq_left_halo",
     "partitioned_ppermute", "partitioned_all_to_all", "partitioned_psum",
     "partitioned_psum_scatter", "ring_all_gather", "ring_all_gather_matmul",
     "ring_matmul_reduce_scatter", "bucketed_psum_tree", "ring_perm",

@@ -11,6 +11,10 @@ Corner/edge handling uses the axis-by-axis trick: exchanging full-extent
 slabs (including the ghost rims of previously exchanged axes) propagates
 edge and corner values in D passes; the fused schedule instead posts all
 ``3^D - 1`` face/edge/corner messages in one independent group.
+
+:func:`seq_left_halo` is the 1-D sequence halo of LM sequence parallelism
+(zamba2's causal conv1d): on the stacked ranks of a one-process mesh, as
+the ring collectives of :mod:`repro_torch.core.partitioned`.
 """
 
 from __future__ import annotations
@@ -22,12 +26,16 @@ from typing import Mapping, Sequence
 import torch
 
 from repro_torch.core.mesh import VirtualMesh
+from repro_torch.core.partitioned import axis_positions, axis_size
 from repro_torch.core.transport import (
     Message,
+    Partitioner,
     ScheduleInfo,
     exchange_messages,
     get_packer,
     get_transport,
+    resolve_packer,
+    resolve_transport,
 )
 from repro_torch.launch.mapping import canonical_mapping
 
@@ -233,3 +241,60 @@ def exchange_fused(x: torch.Tensor, spec: HaloSpec, mesh: VirtualMesh) -> torch.
     group = fused_message_group(_local_shape(x, mesh), spec, mesh_sizes(spec, mesh))
     return exchange_messages(x, (group,), mesh=mesh, packer=spec.packer,
                              transport=spec.transport, coalesce=spec.coalesce)
+
+
+# ---------------------------------------------------------------------------
+# 1-D sequence halo for LM sequence parallelism (conv / local attention)
+# ---------------------------------------------------------------------------
+
+
+def seq_left_halo(
+    x: torch.Tensor,
+    mesh: VirtualMesh,
+    axis_name: str,
+    width: int,
+    *,
+    seq_axis: int = 1,
+    n_parts: int = 1,
+    packer: str = "slice",
+    transport: str = "loopback",
+) -> torch.Tensor:
+    """Prepend to every rank's block of ``x`` (R, *local) the last
+    ``width`` positions of its left neighbour's block along ``axis_name``
+    (zeros for rank 0): the ghost cells a causal conv (zamba2's conv1d)
+    needs under sequence parallelism.  ``seq_axis`` counts the per-rank
+    dims, as in JAX; returns ``(R, ...)`` with ``width + local_seq``
+    positions.  The hop is non-periodic (``[(i, i+1)]``) through
+    :meth:`~repro_torch.core.transport.Transport.permute`; with ``n_parts
+    > 1`` each partition of the slab along the tangent axis is packed,
+    moved and unpacked on its own (the clipped windows of
+    :class:`~repro_torch.core.transport.Partitioner`).  A mesh over several
+    processes is refused (ROADMAP Queue 1 item 17)."""
+    p = resolve_packer(packer)
+    t = resolve_transport(transport)
+    k = axis_size(mesh, axis_name)
+    local = list(x.shape[1:])
+    start = [0] * len(local)
+    start[seq_axis] = local[seq_axis] - width
+    slab = list(local)
+    slab[seq_axis] = width
+    halo = torch.zeros((x.shape[0], *slab), dtype=x.dtype, device=x.device)
+    if k > 1:
+        perm = [(i, i + 1) for i in range(k - 1)]  # non-periodic: causal
+        if n_parts > 1:
+            t_axis = 0 if seq_axis != 0 else (1 if len(local) > 1 else 0)
+            for off, w in Partitioner(n_parts, t_axis).slices(slab[t_axis]):
+                if w <= 0:
+                    continue
+                sub_start, sub_shape, dst = list(start), list(slab), [0] * len(local)
+                sub_start[t_axis] += off
+                sub_shape[t_axis] = w
+                dst[t_axis] = off
+                buf = t.permute(p.pack(x, sub_start, sub_shape), mesh, axis_name, perm)
+                p.unpack(halo, buf, dst, sub_shape)
+        else:
+            buf = t.permute(p.pack(x, start, slab), mesh, axis_name, perm)
+            p.unpack(halo, buf, [0] * len(local), slab)
+        first = axis_positions(mesh, axis_name) == 0
+        halo.masked_fill_(first.view(-1, *([1] * len(local))), 0)
+    return torch.cat([halo, x], dim=seq_axis + 1)

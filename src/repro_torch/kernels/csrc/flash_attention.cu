@@ -8,7 +8,7 @@
 // / denominator / accumulator in f32, and the output divided by max(l,
 // 1e-30) so a row that sees no key stays finite.  q, k, v and o are read
 // and written through (batch, seq, head) strides in the model layout (B, S,
-// H, D); any Sq/Skv (ragged tiles are masked); D is 64 or 128.
+// H, D); any Sq/Skv (ragged tiles are masked); D is 64, 80 or 128.
 //
 // What bounds it on this card: operations.  Causal attention over S tokens
 // does about 2*H*S*S*D flops (two products, half the tiles) on 4*H*S*D
@@ -58,8 +58,20 @@
 //     - ptxas (sm_90a, CUDA 12.8, -O3): 128 registers for D = 128 and 97
 //       for D = 64, no spills, so two blocks (16 warps) share an SM; shared
 //       memory 97 KB a block at D = 128.
+//     - D = 80 (hubert-xlarge's 1280 / 16) runs the D = 128 tile: the tile
+//       width DT and the real D are separate template parameters.  The
+//       tensor maps keep their global extent at D (a 160-byte row stride, a
+//       multiple of 16), so TMA fills columns 80-127 of the second box with
+//       zeros; Q K^T runs only the k-steps that hold real columns (5 of 8),
+//       P V runs the DT-wide product, whose zero columns are never stored;
+//       the scale is the caller's (1 / sqrt(80)).  D is a compile-time value
+//       because a runtime one (the k-step and store tests left in the
+//       code) cost the D = 128 kernel 48 bytes of spills and serialized its
+//       wgmma (ptxas).  A tighter design (m64n80k16 for P V, a
+//       16-column second box) is later work.
 // * f32: flash_kernel, the first CUDA-core kernel of the port, unchanged in
-//   its arithmetic.  The f32 tolerance (2e-5 against the plain version) cannot
+//   its arithmetic (D = 80: 5 accumulator columns a thread, 48.6 KB of
+//   shared memory).  The f32 tolerance (2e-5 against the plain version) cannot
 //   be met by a bf16 or TF32 tensor-core product; f32 is what the tests and
 //   f32 checks use, not the serving path.  One block per (64-row query
 //   tile, head, batch), K/V tiles of 32 keys in shared memory, scores and
@@ -258,9 +270,9 @@ constexpr int BKV = 64;               // keys a K/V tile
 constexpr int NTHREADS = 128 * NWG;
 constexpr int NT = BKV / 8;           // 8-key n-tiles of a score row block
 
-template <int D>
+template <int DT>
 constexpr int smem_bytes() {  // Q + 2 stages x (K, V) + 3 mbarriers + 1024-byte alignment
-  return (BQ * D + 2 * 2 * BKV * D) * 2 + 3 * 8 + 1024;
+  return (BQ * DT + 2 * 2 * BKV * DT) * 2 + 3 * 8 + 1024;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -444,18 +456,20 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&acc)[ND]
   }
 }
 
-// Shared memory, 1024-byte aligned: Q as [D / 64][BQ][64], then stage i's K
-// and V as [D / 64][BKV][64] each, rows of 128 bytes in TMA's 128-byte
-// swizzle; then the mbarriers of Q and of the two stages.
-template <int D>
+// Shared memory, 1024-byte aligned: Q as [DT / 64][BQ][64], then stage i's
+// K and V as [DT / 64][BKV][64] each, rows of 128 bytes in TMA's 128-byte
+// swizzle; then the mbarriers of Q and of the two stages.  DT is the tile
+// width (64 or 128), D <= DT the head dim; columns D..DT-1 arrive as zeros.
+template <int DT, int D>
 __global__ void __launch_bounds__(NTHREADS, 2)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out, int Sq, int Skv,
                 int group, Strides os, float scale_log2, int causal) {
-  constexpr int KD = D / 16;  // k-steps of Q K^T
-  constexpr int ND = D / 8;   // 8-column n-tiles of the output
-  constexpr int DB = D / 64;  // 64-column boxes a row
-  constexpr uint32_t QB = BQ * D * 2, KB = BKV * D * 2;
+  static_assert(D % 16 == 0 && D <= DT, "a head dim of whole k-steps within the tile");
+  constexpr int KD = DT / 16;  // k-steps of Q K^T over the tile
+  constexpr int ND = DT / 8;   // 8-column n-tiles of the output tile
+  constexpr int DB = DT / 64;  // 64-column boxes a row
+  constexpr uint32_t QB = BQ * DT * 2, KB = BKV * DT * 2;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sKV = sQ + QB;        // stage i: K at sKV + 2 i KB, V KB after it
@@ -512,8 +526,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < KD; ++kk)
-        wgmma_ss_n64(s, desc(sQ + (kk >> 2) * (BQ * 128) + wgi * 64 * 128 + (kk & 3) * 32, 16, 1024),
-                     desc(sK + (kk >> 2) * (BKV * 128) + (kk & 3) * 32, 16, 1024), kk > 0);
+        if (kk * 16 < D)  // k-steps in the zero columns past D are not issued
+          wgmma_ss_n64(s, desc(sQ + (kk >> 2) * (BQ * 128) + wgi * 64 * 128 + (kk & 3) * 32, 16,
+                               1024),
+                       desc(sK + (kk >> 2) * (BKV * 128) + (kk & 3) * 32, 16, 1024), kk > 0);
       wg_commit();
       wg_wait0();
 
@@ -537,7 +553,7 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk) {
         const uint64_t dv = desc(sV + kk * 16 * 128, BKV * 128, 1024);
-        if constexpr (D == 128) wgmma_rs_n128(acc, pa[kk], dv);
+        if constexpr (DT == 128) wgmma_rs_n128(acc, pa[kk], dv);
         else wgmma_rs_n64(acc, pa[kk], dv);
       }
       wg_commit();
@@ -557,8 +573,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     bf16* orow = out + b * os.b + qi * os.s + h * os.h + 2 * quad;
 #pragma unroll
     for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
+      if (8 * n < D)  // the tile's columns past D are not the output's
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) =
+            __floats2bfloat162_rn(acc[n][2 * r] / denom, acc[n][2 * r + 1] / denom);
   }
 }
 
@@ -568,7 +585,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
 // (B, S, H, D) bf16 through element strides as the 4-d map (d, seq, head,
-// batch) of 64 x rows boxes, 128-byte swizzle; rows past S read as zeros.
+// batch) of 64 x rows boxes, 128-byte swizzle; rows past S, and columns
+// past D of a box, read as zeros.
 // cuTensorMapEncodeTiled is looked up through the runtime
 // (cudaGetDriverEntryPoint), so nothing links libcuda.
 cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
@@ -599,21 +617,22 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int D>
+// DT: the tile width (64, or 128 for D = 80 and 128); D: the real head dim
+template <int DT, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Hq,
                    int Hkv, int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
                    float scale, int causal, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
+  constexpr int smem = smem_bytes<DT>();
   CUtensorMap tq, tk, tv;
   cudaError_t err = make_map(&tq, q, B, Sq, Hq, D, qs, BQ);
   if (err == cudaSuccess) err = make_map(&tk, k, B, Skv, Hkv, D, ks, BKV);
   if (err == cudaSuccess) err = make_map(&tv, v, B, Skv, Hkv, D, vs, BKV);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(flash_tc_kernel<DT, D>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid(Hq, (Sq + BQ - 1) / BQ, B);
-  flash_tc_kernel<D><<<grid, NTHREADS, smem, stream>>>(
+  flash_tc_kernel<DT, D><<<grid, NTHREADS, smem, stream>>>(
       tq, tk, tv, static_cast<bf16*>(out), Sq, Skv, Hq / Hkv, os, scale * 1.4426950408889634f,
       causal);
   return cudaGetLastError();
@@ -632,7 +651,7 @@ extern "C" {
 
 // out (B, Sq, Hq, D) = attention of q (B, Sq, Hq, D) over k, v (B, Skv, Hkv, D),
 // every tensor addressed as base + b*sb + s*ss + h*sh + d (element strides,
-// d contiguous; a unit dim's stride may be given as 0).  D is 64 or 128; Hq
+// d contiguous; a unit dim's stride may be given as 0).  D is 64, 80 or 128; Hq
 // a multiple of Hkv; Sq / 128 and B <= 65535.  f32 runs on the CUDA cores,
 // bf16 on the tensor cores, with every row 16-byte aligned.
 int flash_attention(const void* q, const void* k, const void* v, void* out, int dtype, int B,
@@ -646,6 +665,7 @@ int flash_attention(const void* q, const void* k, const void* v, void* out, int 
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   if (dtype == F32) {
     if (D == 64) return (int)cc::launch<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
+    if (D == 80) return (int)cc::launch<80>(q, k, v, out, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
     if (D == 128) return (int)cc::launch<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
     return (int)cudaErrorInvalidValue;
   }
@@ -653,8 +673,10 @@ int flash_attention(const void* q, const void* k, const void* v, void* out, int 
   if (Skv <= 0) return (int)cudaErrorInvalidValue;  // a tensor map needs a row
   if (!(rows_aligned(q, qs) && rows_aligned(k, ks) && rows_aligned(v, vs) && rows_aligned(out, os)))
     return (int)cudaErrorMisalignedAddress;
-  if (D == 64) return (int)tc::launch<64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
-  if (D == 128) return (int)tc::launch<128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
+  if (D == 64) return (int)tc::launch<64, 64>(q, k, v, out, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
+  if (D == 80)  // the 128-wide tile, zero-filled past D
+    return (int)tc::launch<128, 80>(q, k, v, out, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
+  if (D == 128) return (int)tc::launch<128, 128>(q, k, v, out, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

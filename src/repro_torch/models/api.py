@@ -6,10 +6,14 @@
     logits, cache = model.prefill(params, {"tokens": tokens}, cache)
     logits, cache = model.decode_step(params, token, cache)
 
-The dense, moe and rwkv families are ported; the others raise.  A caller
-may inject the kernel a family runs: ``attention=`` for the dense and MoE
-decoders' prefill attention, ``wkv=`` for the RWKV scan (e.g. their plain versions
-for a comparison run on the card).
+Every family of the JAX package is ported: dense, moe, rwkv, hybrid (and
+``ssm``, which maps to hybrid as in JAX), vlm and audio; an unknown family
+raises.  The vlm family takes ``batch["vision_emb"]`` beside the tokens,
+the audio family ``batch["frames"]`` (``logits`` is its ``encode``; it has
+no cache or decode).  A caller may inject the kernel a family runs:
+``attention=`` for the local attention of every family but rwkv (its
+prefill's, and the VLM's cross attention), ``wkv=`` for the RWKV scan
+(e.g. their plain versions for a comparison run on the card).
 """
 
 from __future__ import annotations
@@ -21,12 +25,20 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import resolve_device
-from repro_torch.models import moe, rwkv, transformer
+from repro_torch.models import encoder, hybrid, moe, rwkv, transformer, vision
 from repro_torch.models.layers import AttentionFn
 from repro_torch.models.rwkv import WkvFn
 from repro_torch.parallel.context import LOCAL, ParallelContext
 
-_FAMILY_MODULES = {"dense": transformer, "moe": moe, "rwkv": rwkv}
+_FAMILY_MODULES = {
+    "dense": transformer,
+    "moe": moe,
+    "rwkv": rwkv,
+    "ssm": hybrid,  # a pure-ssm arch would be a mamba-only stack; zamba covers it, as in JAX
+    "hybrid": hybrid,
+    "vlm": vision,
+    "audio": encoder,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +71,12 @@ class Model:
         return {"attention": self.attention}
 
     def logits(self, params, batch, *, ctx: ParallelContext = LOCAL):
+        if self.cfg.family == "vlm":
+            return self.module.logits_fn(self.cfg, params, batch["tokens"], batch["vision_emb"],
+                                         ctx=ctx, **self._kernels())
+        if self.cfg.family == "audio":
+            return self.module.encode(self.cfg, params, batch["frames"], ctx=ctx,
+                                      **self._kernels())
         return self.module.logits_fn(self.cfg, params, batch["tokens"], ctx=ctx,
                                      **self._kernels())
 
@@ -75,6 +93,11 @@ class Model:
         # true_len ((B,) int32): bucket-padded prefill, which only the dense
         # decoder has; it is passed on only when given, as in JAX
         kw = {} if true_len is None else {"true_len": true_len}
+        if self.cfg.family == "vlm":
+            if true_len is not None:
+                raise ValueError("the vlm prefill has no bucketed form")
+            return self.module.prefill(self.cfg, params, batch["tokens"], batch["vision_emb"],
+                                       cache, ctx=ctx, **self._kernels())
         return self.module.prefill(self.cfg, params, batch["tokens"], cache, ctx=ctx, **kw,
                                    **self._kernels())
 
@@ -86,12 +109,12 @@ class Model:
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None, *,
                 attention: AttentionFn | None = None, wkv: WkvFn | None = None) -> Model:
     """The model of ``cfg`` on ``device`` (None: the card; a missing card
-    raises).  ``attention`` replaces the dense and MoE decoders' local
-    attention function, ``wkv`` the RWKV scan, e.g. by ``attention_plain`` or
+    raises).  ``attention`` replaces the local attention function of every
+    family but rwkv, ``wkv`` the RWKV scan, e.g. by ``attention_plain`` or
     ``wkv_plain`` for a comparison run on the card."""
     module = _FAMILY_MODULES.get(cfg.family)
     if module is None:
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet: ROADMAP Queue 1 item 13")
+        raise ValueError(f"unknown family {cfg.family!r} ({cfg.name}); the families are "
+                         f"{sorted(_FAMILY_MODULES)}")
     return Model(cfg=cfg, module=module, device=resolve_device(device), attention=attention,
                  wkv=wkv)

@@ -16,9 +16,11 @@ comparison run does with the plain version on the card.
 Under a sequence-parallel context on a mesh, prefill attention is ring
 attention over the model axis (:func:`repro_torch.core.ring.
 ring_attention`) on the stacked ranks (:func:`repro_torch.parallel.context.
-shard_ranks`); ``tp_mode="ring"`` runs :func:`apply_mlp_ring`.  Blockwise
-attention, cross attention and the losses are not ported yet (ROADMAP
-Queue 1 items 13-14).
+shard_ranks`); ``tp_mode="ring"`` runs :func:`apply_mlp_ring`.  On the CPU,
+local attention above 8192 tokens is :func:`blockwise_attention`, as in
+JAX (on the card flash runs at every length).  :func:`cross_attention` is
+llama-3.2-vision's gated cross attention.  The losses wait for the
+training slice (ROADMAP Queue 1 item 14).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import torch_dtype
 from repro_torch.core.partitioned import ring_all_gather_matmul, ring_matmul_reduce_scatter
-from repro_torch.core.ring import ring_attention
+from repro_torch.core.ring import _attend_block, ring_attention
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.parallel.context import (
@@ -158,12 +160,60 @@ def _project_qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
             v.reshape(b, s, cfg.n_kv_heads, hd))
 
 
+_BLOCKWISE_THRESHOLD = 8192  # above this the CPU path never materializes S^2 scores
+
+
+def _pick_block(n: int, target: int) -> int:
+    """Largest block <= target dividing n (n itself for small primes, e.g.
+    the 1601 vision tokens of llama-3.2)."""
+    if n <= target:
+        return n
+    for d in range(target, 0, -1):
+        if n % d == 0:
+            if d >= 128:
+                return d
+            break
+    return n if n <= 8192 else math.gcd(n, target) or n
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                        q_block: int = 1024, kv_block: int = 1024,
+                        scale: float | None = None) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch on ``(B, S, H, D)`` tensors:
+    a loop over (q, kv) blocks with online-softmax accumulation
+    (:func:`repro_torch.core.ring._attend_block`, JAX's order of operations
+    and dtypes), so the scores held at once are ``q_block x kv_block``."""
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    qb, kb = _pick_block(sq, q_block), _pick_block(skv, kv_block)
+    scale = scale if scale is not None else d ** -0.5
+    outs = []
+    for q0 in range(0, sq, qb):
+        qblk = q[None, :, q0:q0 + qb]
+        m = torch.full((1, b, h, qb), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros((1, b, h, qb), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((1, b, qb, h, d), dtype=torch.float32, device=q.device)
+        for k0 in range(0, skv, kb):
+            m, l, acc = _attend_block(
+                qblk, k[None, :, k0:k0 + kb], v[None, :, k0:k0 + kb], m, l, acc,
+                torch.tensor([q0], device=q.device), torch.tensor([k0], device=q.device),
+                causal=causal, scale=scale)
+        l = torch.clamp(l, min=1e-30)
+        outs.append((acc / l.transpose(2, 3)[..., None]).to(q.dtype)[0])
+    return torch.cat(outs, dim=1)
+
+
 def _local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
                      ctx: ParallelContext, attention: AttentionFn | None = None) -> torch.Tensor:
     """(B, S, H, D)-layout attention on local (unsharded-seq) blocks.  The
     JAX package picks its Pallas kernel or its oracle by ``ctx.use_flash``;
     here the device picks (see :func:`~repro_torch.kernels.flash_attention.
-    ops.attention`), and there is no blockwise switch above 8192 tokens."""
+    ops.attention`).  On the CPU, above 8192 tokens, the default is
+    :func:`blockwise_attention`, as JAX's oracle path; an injected
+    ``attention`` runs at every length."""
+    if (attention is None and q.device.type == "cpu"
+            and max(q.shape[1], k.shape[1]) > _BLOCKWISE_THRESHOLD):
+        return blockwise_attention(q, k, v, causal=causal)
     return (attention or flash_ops.attention)(q, k, v, causal=causal)
 
 
@@ -234,6 +284,44 @@ def decode_attention(
     out = torch.einsum("bhgqk,bkhd->bqhgd", w, cache_v.float()).to(x.dtype)
     out = F.linear(out.reshape(b, 1, -1), p["wo"].to(x.dtype))
     return out, cache_k, cache_v
+
+
+def cross_attention_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    """Attention weights plus llama-3.2-vision's zero-init tanh gates and
+    per-head q/k norm scales."""
+    p = attention_params(cfg, gen)
+    pd, hd = _pdtype(cfg), cfg.resolved_head_dim
+    p["gate_attn"] = torch.zeros((1,), dtype=pd, device=gen.device)
+    p["gate_ffn"] = torch.zeros((1,), dtype=pd, device=gen.device)
+    p["q_norm"] = torch.ones((hd,), dtype=pd, device=gen.device)
+    p["k_norm"] = torch.ones((hd,), dtype=pd, device=gen.device)
+    return p
+
+
+def head_rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Per-head RMSNorm over the last dim (hf layout, eps 1e-6), rounded to
+    ``x``'s dtype before the scale, as JAX's."""
+    x = x * torch.rsqrt(torch.mean(x.float() ** 2, dim=-1, keepdim=True) + 1e-6).to(x.dtype)
+    return x * scale.to(x.dtype)
+
+
+def cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor, kv_feats: torch.Tensor, *,
+                    attention: AttentionFn | None = None) -> torch.Tensor:
+    """Gated cross attention (llama-3.2-vision image layers): queries from
+    the text stream ``x`` (B, S, d), keys and values from the projected
+    vision tokens ``kv_feats`` (B, T_img, d), non-causal local attention
+    (the flash kernel on the card), output times ``tanh(gate_attn)``."""
+    b, s, _ = x.shape
+    t = kv_feats.shape[1]
+    hd = cfg.resolved_head_dim
+    q = F.linear(x, p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
+    k = F.linear(kv_feats, p["wk"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
+    v = F.linear(kv_feats, p["wv"].to(x.dtype)).reshape(b, t, cfg.n_kv_heads, hd)
+    q = head_rmsnorm(q, p["q_norm"])
+    k = head_rmsnorm(k, p["k_norm"])
+    out = _local_attention(q, k, v, causal=False, ctx=LOCAL, attention=attention)
+    out = F.linear(out.reshape(b, s, -1), p["wo"].to(x.dtype))
+    return torch.tanh(p["gate_attn"].to(x.dtype)) * out
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,9 @@ refused with ``ValueError``, as JAX's ``shard_map`` refuses it.  Under
 ``moe_mode="ep"`` a MoE prefill dispatches its tokens to the experts over
 the model axis, and a prompt the axis does not divide is refused the same
 way.  Decode runs as without the context (the MoE decode step is the
-dropless one).
+dropless one).  A VLM request carries no image: its prefill gets zero
+patch embeddings, as in the JAX engine.  An encoder-only model is
+refused.
 
 The decode batch is fixed-size: empty slots decode padding tokens whose
 outputs are ignored.  The engine's cache lives on the model's device and is
@@ -163,10 +165,11 @@ class ServingEngine:
         """Padded prompt length, or None for exact-length prefill.
 
         Only the dense transformer prefills bucketed, as in the JAX engine:
-        the other families are length-sensitive (RWKV's recurrent state
-        would run on through the padding, MoE capacity routing would count
-        the padding's tokens), so they prefill at the exact
-        length, one plan per distinct length.
+        the other families are length-sensitive (RWKV's and the hybrid's
+        recurrent states would run on through the padding, MoE capacity
+        routing would count the padding's tokens, the VLM's prefill has no
+        bucketed form), so they prefill at the exact length, one plan per
+        distinct length.
         """
         if self.model.cfg.family != "dense":
             return None
@@ -182,15 +185,20 @@ class ServingEngine:
         plen = prompt.shape[1]
         bucket = self._prefill_bucket(plen)
         cache1 = self.model.init_cache(1, self.max_len)
+        batch = {"tokens": torch.as_tensor(prompt, device=self.device)}
+        cfg = self.model.cfg
+        if cfg.family == "vlm":  # no image: zero patch embeddings, as the JAX engine
+            batch["vision_emb"] = torch.zeros((1, cfg.vision_tokens, cfg.d_vision),
+                                              dtype=torch.bfloat16, device=self.device)
         if bucket is None:
             fn = self._prefill_fn
-            args = (self.params, {"tokens": torch.as_tensor(prompt, device=self.device)}, cache1)
+            args = (self.params, batch, cache1)
         else:
             padded = np.pad(prompt, ((0, 0), (0, bucket - plen)))
             true_len = torch.full((1,), plen, dtype=torch.int32, device=self.device)
             fn = self._prefill_bucketed_fn
-            args = (self.params, {"tokens": torch.as_tensor(padded, device=self.device)}, cache1,
-                    true_len)
+            args = (self.params, {**batch, "tokens": torch.as_tensor(padded, device=self.device)},
+                    cache1, true_len)
         logits, cache1 = self._plan(fn, args).start(*args[1:])
         self.stats.prefills += 1
         self._cache = _write_slot(self._cache, cache1, slot, self._slot_axes)

@@ -131,7 +131,9 @@ def test_comb_paper_is_not_a_model_config():
     assert configs.comb_paper is t_cp
     assert names and not any("comb" in n or "quartz" in n.lower() for n in names)
     assert all(isinstance(base.get_config(n), base.ModelConfig) for n in names)
-    assert all(base.get_config(n).family in ("dense", "moe", "rwkv") for n in names)
+    from repro_torch.models.api import _FAMILY_MODULES
+
+    assert all(base.get_config(n).family in _FAMILY_MODULES for n in names)
 
 
 # -- the JAX file's paper claims, on the port's copy ----------------------------

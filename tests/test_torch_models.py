@@ -40,7 +40,7 @@ CASES = {
 
 
 @pytest.mark.parametrize("reduced", [False, True], ids=["full", "reduced"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + ["zamba2-1.2b", "llama-3.2-vision-11b", "hubert-xlarge"])
 def test_config_field_equal_to_jax(name, reduced):
     mine, theirs = get_config(name), j_get_config(name)
     if reduced:
@@ -51,11 +51,15 @@ def test_config_field_equal_to_jax(name, reduced):
 
 
 def test_other_families_raise():
+    """Every family of the JAX package builds (``ssm`` is the hybrid, as in
+    JAX); an unknown family raises."""
     from repro_torch.configs.base import ModelConfig as Cfg
+    from repro_torch.models import hybrid
 
     ssm = Cfg(name="m", family="ssm", n_layers=1, d_model=8, d_ff=8, vocab_size=8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(ssm, "cpu")
+    assert build_model(ssm, "cpu").module is hybrid
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(ssm, family="diffusion"), "cpu")
 
 
 def _cfgs(name: str, dtype: str):

@@ -20,7 +20,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "stencil_heat3d_torch.py",
     ROOT / "tools" / "ring_lm.py", ROOT / "tools" / "moe_lm.py",
-    ROOT / "tools" / "serve_bench_lm.py"]
+    ROOT / "tools" / "serve_bench_lm.py", ROOT / "tools" / "families_lm.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -61,7 +61,12 @@ def test_port_has_modules_and_smoke_script():
                      "src/repro_torch/core/model_comm.py",
                      "src/repro_torch/configs/comb_paper.py",
                      "src/repro_torch/core/comm_analysis.py",
-                     "src/repro_torch/serving/bench.py", "tools/serve_bench_lm.py"):
+                     "src/repro_torch/serving/bench.py", "tools/serve_bench_lm.py",
+                     "src/repro_torch/models/ssm.py", "src/repro_torch/models/hybrid.py",
+                     "src/repro_torch/models/vision.py", "src/repro_torch/models/encoder.py",
+                     "src/repro_torch/configs/zamba2_1_2b.py",
+                     "src/repro_torch/configs/llama_3_2_vision_11b.py",
+                     "src/repro_torch/configs/hubert_xlarge.py", "tools/families_lm.py"):
         assert required in names
 
 
