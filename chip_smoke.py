@@ -6,7 +6,8 @@ sequence-parallel on a virtual ring of 8 ranks, the MoE model:
 phi3.5-moe served and expert-parallel over 16 ranks, one grok-1 MoE FFN,
 the LM serve bench with the collective count of its ring prefill, and the
 last model families: zamba2-1.2b served and sequence-parallel,
-llama-3.2-vision-11b served, hubert-xlarge's encoder.
+llama-3.2-vision-11b served, hubert-xlarge's encoder, and training:
+stablelm-1.6b at full width through the flash-attention backward kernel.
 
     python3 chip_smoke.py
 
@@ -288,6 +289,22 @@ K. The last model families (``tools/families_lm.py``), after phase J, at
    ``encode`` of 4 x 1000 frames, ``flash_attention`` 48 times at head dim
    80, against plain attention, ms a call.  Its flash launches join the
    summary line's under ``"K"``.
+L. Training (``tools/train_lm.py``), after phase G, the last: (L1) the flash
+   backward kernel ``flash_attention_bwd`` against autograd through the
+   plain attention in f32 at stablelm-1.6b's training shape, llama3-8b's
+   GQA, hubert-xlarge's D = 80 and two f32 cases (ragged ``Sq != Skv``; no
+   key at all), the forward's log-sum-exp against the plain scores', timed
+   at the training path's shape beside the plain version's backward and
+   SDPA's; (L2) stablelm-1.6b at full width and depth through the port's
+   ``Trainer``: 6 steps of 2 x 4096 tokens in 2 microbatches, finite
+   losses, ``flash_attention`` launched layers x microbatches a step and
+   ``flash_attention_bwd`` three times that (its delta pre-pass, dK/dV
+   and dQ kernels, each counted), a finite non-zero gradient on every
+   parameter leaf, ms a step against its floor, peak memory, the idle
+   share of a traced step; (L3) a restart from a checkpoint on the card
+   against an uninterrupted run (2 layers); (L4) rwkv6-1.6b's loss and
+   its logits with grad refuse.  Its launches join the summary line's
+   under ``"L"``; the backward kernel's row is its own.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -733,6 +750,40 @@ def families(torch, dev, kernels: dict) -> dict:
     add_launches(kernels["flash_attention"], "K",
                  sum(out[t]["launches"].get("flash_attention", 0) for t in ("K1", "K3", "K4")))
     print(f"phase K took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def training(torch, dev, kernels: dict) -> dict:
+    """Phase L (``tools/train_lm.py``): the flash backward against its
+    plain version, stablelm-1.6b trained at full width, a restart on the
+    card, rwkv's refusal; the flash launches of the Trainer's run join the
+    summary line's under ``"L"``, with the backward kernel's own row."""
+    import train_lm
+
+    t0 = time.perf_counter()
+    try:
+        out = train_lm.train_phase(torch, dev)
+    except train_lm.PhaseFailure as e:
+        fail(f"phase L: {e}")
+    out["phase_s"] = time.perf_counter() - t0
+    launches = out["L2"]["launches"]
+    add_launches(kernels["flash_attention"], "L", launches.get("flash_attention", 0))
+    path = out["L1"]["path"]
+    kernels["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash.py:127",
+        replaces_note="the backward of flash_attention; the JAX package has no backward kernel "
+                      "and differentiates its plain attention with XLA",
+        max_abs_err=out["L1"]["max_abs_err"], ms=path["ms"], plain_ms=path["plain_ms"],
+        bound_ms=path["bound_ms"], bound_by=path["bound_by"], library_ms=path["library_ms"],
+        timing=path["timing"], shape=path["shape"], flops=path["flops"],
+        flop_convention=path["flop_convention"],
+        bitwise_repeatable=path["bitwise_repeatable"])
+    add_launches(kernels["flash_attention_bwd"], "L", launches.get("flash_attention_bwd", 0))
+    if not kernels["flash_attention_bwd"]["launches"]:
+        fail("phase L: the training path never launched flash_attention_bwd")
+    print(f"phase L took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -1884,6 +1935,7 @@ def main() -> int:
     from repro_torch.stencil.heat3d import DOMAIN_AXES, heat3d_update
 
     record: dict = {}
+    t_main = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2442,6 +2494,11 @@ def main() -> int:
 
     # -- G. elastic recovery at the heat3d size ---------------------------------
     record["elastic"] = elastic_phase(torch, dev, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- L. training: the flash backward, stablelm-1.6b at full width -----------
+    record["training"] = training(torch, dev, kernels)
 
     # -- 5. results -----------------------------------------------------------
     record.update(
@@ -2450,6 +2507,24 @@ def main() -> int:
         launches_per_cycle=per_cycle, exchange_cells=cells, breakdown=breakdown,
         heat3d_plan_timing=plan_timing, random_s=random_s,
     )
+    # every device breakdown of this process: the sessions it took (1: traced
+    # once; more: a session recorded no device activity and was traced again)
+    # and its clock check
+    from repro_torch.core.profiling import TRACES
+
+    gaps = [t[k] for t in TRACES for k in ("first_launch_to_device_us",
+                                           "last_device_to_sync_end_us") if t.get(k) is not None]
+    record["profiler_traces"] = dict(calls=len(TRACES), retraced=sum(t["sessions"] > 1
+                                                                     for t in TRACES),
+                                     min_gap_us=min(gaps, default=None),
+                                     max_gap_us=max(gaps, default=None), traces=TRACES)
+    print(f"profiler: {len(TRACES)} device breakdowns in this process, "
+          f"{record['profiler_traces']['retraced']} of them traced again (sessions "
+          f"{[t['sessions'] for t in TRACES]}); clock-check gaps "
+          f"{record['profiler_traces']['min_gap_us']} to {record['profiler_traces']['max_gap_us']} us",
+          flush=True)
+    record["script_s"] = time.perf_counter() - t_main
+    print(f"chip_smoke: all phases in {record['script_s']:.1f} s", flush=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

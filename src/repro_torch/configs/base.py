@@ -2,16 +2,16 @@
 ``repro/configs/base.py`` (the port imports nothing of that package).
 
 Every architecture is a :class:`ModelConfig`; the four input shapes are
-:class:`ShapeConfig` instances.  Configs are frozen dataclasses, so they hash
-into plan-cache keys.  The copy keeps every field and method of the
-original, so a test can hold each registered config field-equal to its JAX
-counterpart.  Methods no caller of the port uses (the dry-run cell lists,
-FLOP counts) and the run/optimizer configs wait for their slices.
+:class:`ShapeConfig` instances; a training run is a :class:`RunConfig`
+with its :class:`OptimizerConfig`.  Configs are frozen dataclasses, so they
+hash into plan-cache keys.  The copy keeps every field and method of the
+original, so a test can hold each registered config field-equal, and each
+method's result equal, to its JAX counterpart.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 from typing import Any
 
 
@@ -156,6 +156,29 @@ class ModelConfig:
     def is_encoder_only(self) -> bool:
         return self.family == "audio"
 
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing -> long_500k is runnable."""
+        return self.family in ("ssm", "hybrid", "rwkv")
+
+    def shapes(self) -> list[ShapeConfig]:
+        """The live cells for this arch (skips per DESIGN.md §4)."""
+        out = [TRAIN_4K, PREFILL_32K]
+        if not self.is_encoder_only:
+            out.append(DECODE_32K)
+            if self.supports_long_context:
+                out.append(LONG_500K)
+        return out
+
+    def skipped_shapes(self) -> list[tuple[str, str]]:
+        out = []
+        if self.is_encoder_only:
+            out.append(("decode_32k", "encoder-only: no decode step"))
+            out.append(("long_500k", "encoder-only: no decode step"))
+        elif not self.supports_long_context:
+            out.append(("long_500k", "full quadratic attention: skipped per spec"))
+        return out
+
     # ------------------------------------------------------------------
     def param_count(self) -> int:
         """Analytic parameter count (validated against published sizes)."""
@@ -239,6 +262,37 @@ class ModelConfig:
             raise ValueError(self.family)
         return total
 
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only top_k experts count)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        expert = 3 * d * f if self.act in ("silu", "geglu") else 2 * d * f
+        inactive = self.n_layers * (self.n_experts - self.top_k) * expert
+        return self.param_count() - inactive
+
+    # ------------------------------------------------------------------
+    def model_flops_per_token(self, seq_len: int, kind: str = "train") -> float:
+        """MODEL_FLOPS term: 6*N (train) / 2*N (inference) per token, dense or
+        active-param based, plus quadratic attention term where applicable."""
+        n = self.active_param_count()
+        mult = 6.0 if kind == "train" else 2.0
+        flops = mult * n
+        if self.family not in ("ssm", "rwkv") and self.n_heads:
+            # attention scores+values: 2 * 2 * d_attn * seq (causal halves it)
+            d_attn = self.n_heads * self.resolved_head_dim
+            causal_factor = 0.5 if self.causal else 1.0
+            att = mult * 2 * d_attn * seq_len * causal_factor
+            n_attn_layers = (
+                self.n_layers
+                if self.family != "hybrid"
+                else max(1, self.n_layers // max(1, self.attn_every))
+            )
+            flops += att * (
+                n_attn_layers / max(1, self.n_layers)
+            ) * self.n_layers  # == att * n_attn_layers
+        return flops
+
     def with_updates(self, **kw: Any) -> "ModelConfig":
         return replace(self, **kw)
 
@@ -272,6 +326,54 @@ class ModelConfig:
         return replace(self, **kw)
 
 
+# ---------------------------------------------------------------------------
+# Run / training configuration
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    # ZeRO-1: shard optimizer state over the data axis where divisible
+    zero1: bool = True
+    # gradient compression (beyond-paper distributed-optimization trick)
+    grad_compression: str = "none"  # none | bf16 | int8_stochastic
+    # partitioned (bucketed/chunked) gradient collectives
+    partitioned_grad_buckets: int = 0  # 0 = single fused collective
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig = TRAIN_4K
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    seed: int = 0
+    steps: int = 100
+    log_every: int = 10
+    # checkpointing / fault tolerance
+    checkpoint_dir: str = ""
+    checkpoint_every: int = 50
+    keep_checkpoints: int = 3
+    async_checkpoint: bool = True
+    resume: bool = True
+    # straggler mitigation
+    straggler_ewma: float = 0.9
+    straggler_factor: float = 3.0
+
+    @property
+    def microbatch(self) -> int:
+        return self.shape.global_batch
+
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 
@@ -288,3 +390,8 @@ def get_config(name: str) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
+
+def all_configs() -> dict[str, ModelConfig]:
+    from repro_torch import configs as _c  # noqa: F401
+
+    return dict(_REGISTRY)

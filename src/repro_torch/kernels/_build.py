@@ -16,6 +16,10 @@ memory) is reported at its call site instead of vanishing.
 ``LAUNCHES`` counts kernel launches by kernel name.  A wrapper adds one
 exactly where it launches its kernel and nowhere else, so a run can show
 that its main path went through the kernels.
+
+A kernel is a ctypes call: its output has no ``grad_fn``.  A wrapper
+without a backward calls :func:`refuse_grad` first, so a gradient through
+it raises instead of silently stopping at its output.
 """
 
 from __future__ import annotations
@@ -123,6 +127,18 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
                 f.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
+
+
+def refuse_grad(name: str, *tensors, why: str) -> None:
+    """Raise ``NotImplementedError`` when grad is enabled and any of
+    ``tensors`` requires grad: the kernel ``name`` has no backward, and its
+    output would cut the graph (``why`` says where the backward is, or
+    which ROADMAP item it waits for)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(f"{name}: no backward kernel, so a gradient through it would "
+                                  f"stop at its output; {why}")
 
 
 def check(code: int, what: str) -> None:

@@ -32,6 +32,9 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: why the pack kernels refuse a gradient (:func:`_build.refuse_grad`)
+NO_GRAD = ("a gradient through the exchange and ring paths waits for training on a mesh "
+           "(ROADMAP Queue 1 item 21)")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
@@ -130,6 +133,7 @@ def copy_convert(src: torch.Tensor, dst: torch.Tensor, *, scale: float = 1.0) ->
     5-D ring-attention KV buffer; the rows and run are moved 16 bytes a
     thread where :func:`vector_width` allows.  Returns ``dst``."""
     _check_cuda("copy_convert", src, dst)
+    _build.refuse_grad("copy_convert", src, dst, why=NO_GRAD)
     if src.shape != dst.shape:
         raise ValueError(f"copy_convert: shapes {tuple(src.shape)} -> "
                          f"{tuple(dst.shape)} (same shape)")
@@ -265,6 +269,7 @@ def gather_pack(
     the (nchunk, 7) int64 work ``table`` of :func:`segment_table`, built for
     ``x``'s local shape.  Returns ``out``."""
     _check_cuda("gather_pack", x, table, out)
+    _build.refuse_grad("gather_pack", x, out, why=NO_GRAD)
     if not (x.is_contiguous() and out.is_contiguous() and table.is_contiguous()):
         raise ValueError("gather_pack: x, table and out must be contiguous")
     if table.dtype != torch.int64 or table.dim() != 2 or table.shape[1] != WORK_COLS:

@@ -65,6 +65,8 @@ def stencil27(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> torch.Tens
     for t in (x, w, out):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError("stencil27: x, w and out must be on one CUDA device")
+    _build.refuse_grad("stencil27", x, w, out,
+                       why="no path of the JAX package differentiates the stencil update")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("stencil27: x and w must be contiguous")
     if x.dtype not in _DTYPE_CODE or out.dtype != x.dtype:

@@ -78,6 +78,9 @@ def wkv_chunked(
             raise TypeError(f"wkv_chunked: {name} is {t.dtype}, r is {r.dtype} (one dtype)")
     if r.dtype not in _DTYPE_CODE:
         raise TypeError(f"wkv_chunked: {r.dtype} (f32 or bf16)")
+    _build.refuse_grad("wkv_chunked", r, k, v, lw, u, *(() if S0 is None else (S0,)),
+                       why="RWKV training waits for a WKV backward kernel (ROADMAP Queue 1 "
+                           "item 19)")
     b, T, h, hd = r.shape
     for name, t in (("r", r), ("k", k), ("v", v), ("lw", lw)):
         if tuple(t.shape) != (b, T, h, hd) or t.stride(-1) != 1:

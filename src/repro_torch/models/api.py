@@ -5,6 +5,7 @@
     cache  = model.init_cache(batch=8, max_len=1024)
     logits, cache = model.prefill(params, {"tokens": tokens}, cache)
     logits, cache = model.decode_step(params, token, cache)
+    loss   = model.loss(params, {"tokens": tokens, "labels": labels})
 
 Every family of the JAX package is ported: dense, moe, rwkv, hybrid (and
 ``ssm``, which maps to hybrid as in JAX), vlm and audio; an unknown family
@@ -13,7 +14,9 @@ the audio family ``batch["frames"]`` (``logits`` is its ``encode``; it has
 no cache or decode).  A caller may inject the kernel a family runs:
 ``attention=`` for the local attention of every family but rwkv (its
 prefill's, and the VLM's cross attention), ``wkv=`` for the RWKV scan
-(e.g. their plain versions for a comparison run on the card).
+(e.g. their plain versions for a comparison run on the card).  ``loss``
+is the dense family's alone so far; the others raise
+``NotImplementedError`` naming the ROADMAP item they wait for.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import resolve_device
 from repro_torch.models import encoder, hybrid, moe, rwkv, transformer, vision
-from repro_torch.models.layers import AttentionFn
+from repro_torch.models.layers import META, AttentionFn
 from repro_torch.models.rwkv import WkvFn
 from repro_torch.parallel.context import LOCAL, ParallelContext
 
@@ -38,6 +41,13 @@ _FAMILY_MODULES = {
     "hybrid": hybrid,
     "vlm": vision,
     "audio": encoder,
+}
+
+#: family -> the ROADMAP item its loss waits for
+_LOSS_WAITS = {
+    "rwkv": "ROADMAP Queue 1 item 19: its scan on the card is the WKV kernel, which needs a "
+            "hand-written backward",
+    **{family: "ROADMAP Queue 1 item 18" for family in ("moe", "ssm", "hybrid", "vlm", "audio")},
 }
 
 
@@ -54,9 +64,12 @@ class Model:
     wkv: WkvFn | None = None
 
     # -- params ---------------------------------------------------------------
-    def init(self, gen: torch.Generator | int = 0) -> dict:
+    def init(self, gen: torch.Generator | int | str = 0) -> dict:
         """Random parameters on ``self.device`` from a generator on that
-        device (or a seed for a new one)."""
+        device (or a seed for a new one); ``"meta"`` gives every parameter
+        as a meta tensor of its shape and dtype (``jax.eval_shape(init)``)."""
+        if gen == "meta":
+            return self.module.init(self.cfg, META)
         if isinstance(gen, int):
             gen = torch.Generator(self.device).manual_seed(gen)
         if gen.device.type != self.device.type:
@@ -69,6 +82,13 @@ class Model:
         if self.cfg.family == "rwkv":
             return {"wkv": self.wkv}
         return {"attention": self.attention}
+
+    def loss(self, params, batch, *, ctx: ParallelContext = LOCAL):
+        """The training loss of ``batch``; the dense family's alone so far."""
+        if self.cfg.family in _LOSS_WAITS:
+            raise NotImplementedError(f"{self.cfg.name}: the {self.cfg.family} family's loss "
+                                      f"is not ported yet ({_LOSS_WAITS[self.cfg.family]})")
+        return self.module.loss_fn(self.cfg, params, batch, ctx=ctx, **self._kernels())
 
     def logits(self, params, batch, *, ctx: ParallelContext = LOCAL):
         if self.cfg.family == "vlm":

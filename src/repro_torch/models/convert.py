@@ -65,7 +65,10 @@ RWKV tree the set :data:`RWKV_MATRICES` (``w_base`` is a vector,
 ``(d, E)``, the slot stacks ``(S, in, out)``), which ``repro_torch.models.
 moe`` applies in batched products.  Embeddings, norms, biases, gates,
 mixes, the bonus and the conv kernel keep their layout.
-:func:`params_to_numpy` is the inverse.  bf16 arrays (ml_dtypes
+:func:`params_to_numpy` is the inverse.  :func:`train_state_from_jax` and
+:func:`train_state_to_numpy` carry a train state (``{"params", "opt": {"m",
+"v", "step"}}``): the moments are laid out as the parameters, the step is
+an int32 scalar.  bf16 arrays (ml_dtypes
 ``bfloat16``) cross as their 16-bit patterns, exactly;
 :func:`params_to_numpy` names that type through numpy
 (``np.dtype("bfloat16")``), so a process without ml_dtypes loaded cannot
@@ -182,3 +185,26 @@ def params_to_numpy(cfg: ModelConfig, params: dict) -> dict:
 
 def _map_tree(fn, tree):
     return {k: _map_tree(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
+def train_state_from_jax(cfg: ModelConfig, state: dict,
+                         device: str | torch.device | None = None) -> dict:
+    """The port's train state from the JAX package's (numpy arrays): the
+    parameters and both AdamW moments through :func:`params_from_jax`, the
+    step as an int32 scalar tensor, on ``device`` (None: the card)."""
+    dev = resolve_device(device)
+    opt = state["opt"]
+    return {"params": params_from_jax(cfg, state["params"], dev),
+            "opt": {"m": params_from_jax(cfg, opt["m"], dev),
+                    "v": params_from_jax(cfg, opt["v"], dev),
+                    "step": torch.tensor(int(np.asarray(opt["step"])), dtype=torch.int32,
+                                         device=dev)}}
+
+
+def train_state_to_numpy(cfg: ModelConfig, state: dict) -> dict:
+    """The JAX package's train state (numpy arrays) of the port's: the
+    inverse of :func:`train_state_from_jax`."""
+    opt = state["opt"]
+    return {"params": params_to_numpy(cfg, state["params"]),
+            "opt": {"m": params_to_numpy(cfg, opt["m"]), "v": params_to_numpy(cfg, opt["v"]),
+                    "step": np.asarray(int(opt["step"]), dtype=np.int32)}}

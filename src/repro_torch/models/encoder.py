@@ -31,7 +31,7 @@ def init(cfg: ModelConfig, gen: torch.Generator) -> Params:
     pd = torch_dtype(cfg.param_dtype)
     return {
         "frame_proj": L.dense_init(gen, cfg.d_vision, cfg.d_model, pd),
-        "mask_emb": (torch.randn((cfg.d_model,), generator=gen, device=gen.device)
+        "mask_emb": (L.randn(gen, (cfg.d_model,))
                      * 0.02).to(pd),
         "layers": [T.layer_params(cfg, gen) for _ in range(cfg.n_layers)],
         "norm_f": L.norm_params(cfg, gen.device),

@@ -19,8 +19,8 @@ ring_attention`) on the stacked ranks (:func:`repro_torch.parallel.context.
 shard_ranks`); ``tp_mode="ring"`` runs :func:`apply_mlp_ring`.  On the CPU,
 local attention above 8192 tokens is :func:`blockwise_attention`, as in
 JAX (on the card flash runs at every length).  :func:`cross_attention` is
-llama-3.2-vision's gated cross attention.  The losses wait for the
-training slice (ROADMAP Queue 1 item 14).
+llama-3.2-vision's gated cross attention.  :func:`cross_entropy` and
+:func:`chunked_lm_loss` are the LM losses, in JAX's order of operations.
 """
 
 from __future__ import annotations
@@ -59,17 +59,43 @@ def _pdtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
+class _MetaDraws:
+    """Stands in for a ``torch.Generator`` when only shapes are wanted:
+    :func:`randn` and :func:`rand` give meta tensors for it."""
+
+    device = torch.device("meta")
+
+
+#: pass as the generator of an ``init`` to get every parameter as a meta
+#: tensor of its shape and dtype (``Model.init("meta")``)
+META = _MetaDraws()
+
+
+def randn(gen, shape: tuple[int, ...]) -> torch.Tensor:
+    """Normal draws from ``gen`` on its device (meta for :data:`META`)."""
+    if gen is META:
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def rand(gen, shape: tuple[int, ...]) -> torch.Tensor:
+    """Uniform [0, 1) draws from ``gen`` on its device (meta for :data:`META`)."""
+    if gen is META:
+        return torch.empty(shape, device="meta")
+    return torch.rand(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype: torch.dtype,
                scale: float | None = None) -> torch.Tensor:
     """An ``(out_dim, in_dim)`` weight, normal times ``1/sqrt(in_dim)``, made
     on the generator's device."""
     scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
-    w = torch.randn((out_dim, in_dim), generator=gen, device=gen.device)
+    w = randn(gen, (out_dim, in_dim))
     return (w * scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype: torch.dtype) -> torch.Tensor:
-    return (torch.randn((vocab, dim), generator=gen, device=gen.device) * 0.02).to(dtype)
+    return (randn(gen, (vocab, dim)) * 0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -381,3 +407,45 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         h = _gelu(F.linear(x, p["w_up"].to(x.dtype)))
     return F.linear(h, p["w_down"].to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-log_softmax(logits) in f32 at ``labels`` (int32 from the pipeline;
+    ``gather`` takes int64, so the cast is here and nowhere else)."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(lp, -1, labels.long()[..., None])[..., 0]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean token NLL, or its ``mask``-weighted mean over ``max(sum(mask),
+    1)``."""
+    nll = _nll(logits, labels)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def chunked_lm_loss(x: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, chunk: int,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """CE loss of the final hidden states ``x`` (B, S, d) against the output
+    embedding ``emb`` (V, d), the logits made in ``x``'s dtype.  With ``0 <
+    chunk < S`` and ``S % chunk == 0`` the logits are made one sequence
+    chunk at a time, as JAX scans them."""
+    s = x.shape[1]
+    w = emb.to(x.dtype)
+    if chunk <= 0 or s <= chunk or s % chunk != 0:
+        return cross_entropy(F.linear(x, w), labels, mask)
+    tot = x.new_zeros((), dtype=torch.float32)
+    cnt = x.new_zeros((), dtype=torch.float32)
+    for c0 in range(0, s, chunk):
+        nll = _nll(F.linear(x[:, c0:c0 + chunk], w), labels[:, c0:c0 + chunk])
+        mc = mask[:, c0:c0 + chunk] if mask is not None else torch.ones_like(nll)
+        tot = tot + torch.sum(nll * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)

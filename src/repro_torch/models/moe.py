@@ -101,7 +101,7 @@ def _stack_init(gen: torch.Generator, n: int, in_dim: int, out_dim: int,
                 dtype: torch.dtype) -> torch.Tensor:
     """``n`` stacked ``(in_dim, out_dim)`` weights, normal times
     ``1/sqrt(in_dim)``, made on the generator's device."""
-    w = torch.randn((n, in_dim, out_dim), generator=gen, device=gen.device)
+    w = L.randn(gen, (n, in_dim, out_dim))
     return (w / math.sqrt(in_dim)).to(dtype)
 
 

@@ -70,7 +70,7 @@ def layer_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     lora_r = min(LORA_R, d)
 
     def uniform(*shape):
-        return torch.rand(shape, generator=gen, device=dev) * 0.5 + 0.25
+        return L.rand(gen, shape) * 0.5 + 0.25
 
     return {
         "ln1": L.norm_params(cfg, dev),
@@ -82,10 +82,10 @@ def layer_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
         "wv": L.dense_init(gen, d, d, pd),
         "wg": L.dense_init(gen, d, d, pd),
         "wo": L.dense_init(gen, d, d, pd),
-        "w_base": (torch.randn((d,), generator=gen, device=dev) * 0.5 - 1.0).to(pd),
+        "w_base": (L.randn(gen, (d,)) * 0.5 - 1.0).to(pd),
         "w_lora_a": L.dense_init(gen, d, lora_r, pd),
         "w_lora_b": torch.zeros((d, lora_r), dtype=pd, device=dev),
-        "u": (torch.randn((h, hd), generator=gen, device=dev) * 0.1).to(pd),
+        "u": (L.randn(gen, (h, hd)) * 0.1).to(pd),
         # channel-mix
         "mu_c": uniform(2, d).to(pd),
         "ck": L.dense_init(gen, d, cfg.d_ff, pd),

@@ -70,7 +70,7 @@ def mamba_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return {
         "norm": L.norm_params(cfg, dev),
         "in_proj": L.dense_init(gen, d, di + ch + nh, pd),
-        "conv_w": (torch.randn((cfg.conv_kernel, ch), generator=gen, device=dev) * 0.2).to(pd),
+        "conv_w": (L.randn(gen, (cfg.conv_kernel, ch)) * 0.2).to(pd),
         "conv_b": torch.zeros((ch,), dtype=pd, device=dev),
         "A_log": torch.log(torch.linspace(1.0, 8.0, nh, device=dev)),
         "D": torch.ones((nh,), dtype=torch.float32, device=dev),

@@ -5,13 +5,26 @@ The JAX module stacks its layers on a leading axis and runs them with
 ``lax.scan``; here ``params["layers"]`` is a list of per-layer dicts looped
 in Python.  The KV cache keeps the JAX layout, ``(n_layers, B, max_len,
 n_kv_heads, head_dim)`` per tensor, and prefill/decode write it in place.
-Remat and the loss wait for the training slice.
+
+Remat per ``cfg.remat`` where the activations carry a graph (training),
+as JAX's ``jax.checkpoint``
+around each block: ``"full"`` recomputes the whole block in the backward
+(``torch.utils.checkpoint``, non-reentrant), ``"dots"`` keeps the matrix
+products' outputs and recomputes the rest (selective checkpointing, the
+counterpart of ``checkpoint_dots``).  Remat changes no value.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import torch_dtype
@@ -20,6 +33,28 @@ from repro_torch.models.layers import AttentionFn
 from repro_torch.parallel.context import LOCAL, ParallelContext
 
 Params = dict
+
+#: the products whose outputs ``remat="dots"`` keeps
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.linear.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig, fn, x: torch.Tensor):
+    """``fn`` under ``cfg.remat`` (see the module docstring); as it is when
+    ``x`` carries no graph (serving), where nothing would be saved."""
+    if cfg.remat == "none" or not x.requires_grad:
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat policy {cfg.remat!r} (none, dots, full)")
 
 
 # ---------------------------------------------------------------------------
@@ -78,8 +113,9 @@ def hidden_states(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                   attention: AttentionFn | None = None) -> torch.Tensor:
     x = _embed(cfg, params, tokens)
     positions = _positions(tokens)
+    block = _remat(cfg, decoder_block, x)
     for lp in params["layers"]:
-        x = decoder_block(cfg, lp, x, positions, ctx, attention)
+        x = block(cfg, lp, x, positions, ctx, attention)
     return L.apply_norm(cfg, params["norm_f"], x)
 
 
@@ -95,6 +131,16 @@ def logits_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
               ctx: ParallelContext = LOCAL,
               attention: AttentionFn | None = None) -> torch.Tensor:
     return _lm_head(cfg, params, hidden_states(cfg, params, tokens, ctx=ctx, attention=attention))
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, ctx: ParallelContext = LOCAL,
+            attention: AttentionFn | None = None) -> torch.Tensor:
+    """The LM loss of ``batch`` (``tokens``, ``labels``, optional ``mask``)
+    through :func:`~repro_torch.models.layers.chunked_lm_loss` with
+    ``cfg.logits_chunk``."""
+    x = hidden_states(cfg, params, batch["tokens"], ctx=ctx, attention=attention)
+    return L.chunked_lm_loss(x, output_embedding(cfg, params), batch["labels"],
+                             cfg.logits_chunk, mask=batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

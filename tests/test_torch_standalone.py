@@ -20,7 +20,9 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "examples" / "stencil_heat3d_torch.py",
     ROOT / "tools" / "ring_lm.py", ROOT / "tools" / "moe_lm.py",
-    ROOT / "tools" / "serve_bench_lm.py", ROOT / "tools" / "families_lm.py"]
+    ROOT / "tools" / "serve_bench_lm.py", ROOT / "tools" / "families_lm.py",
+    ROOT / "tools" / "train_lm.py", ROOT / "examples" / "train_lm_torch.py",
+    ROOT / "tools" / "trace_sessions.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -66,7 +68,12 @@ def test_port_has_modules_and_smoke_script():
                      "src/repro_torch/models/vision.py", "src/repro_torch/models/encoder.py",
                      "src/repro_torch/configs/zamba2_1_2b.py",
                      "src/repro_torch/configs/llama_3_2_vision_11b.py",
-                     "src/repro_torch/configs/hubert_xlarge.py", "tools/families_lm.py"):
+                     "src/repro_torch/configs/hubert_xlarge.py", "tools/families_lm.py",
+                     "src/repro_torch/train/optimizer.py", "src/repro_torch/train/train_loop.py",
+                     "src/repro_torch/data/pipeline.py", "src/repro_torch/parallel/sharding.py",
+                     "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/train.py",
+                     "tools/train_lm.py", "examples/train_lm_torch.py",
+                     "tools/trace_sessions.py"):
         assert required in names
 
 
@@ -107,6 +114,15 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match="cuda"):
         make_mesh((2,), ("px",))
     assert make_mesh((2,), ("px",), device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.launch.train import main
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        main(["--arch", "stablelm-1.6b", "--reduced", "--steps", "1"])
 
 
 def test_serving_entry_points_raise_without_cuda():
