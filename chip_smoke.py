@@ -292,14 +292,18 @@ K. The last model families (``tools/families_lm.py``), after phase J, at
 L. Training (``tools/train_lm.py``), after phase G, the last: (L1) the flash
    backward kernel ``flash_attention_bwd`` against autograd through the
    plain attention in f32 at stablelm-1.6b's training shape, llama3-8b's
-   GQA, hubert-xlarge's D = 80 and two f32 cases (ragged ``Sq != Skv``; no
-   key at all), the forward's log-sum-exp against the plain scores', timed
-   at the training path's shape beside the plain version's backward and
-   SDPA's; (L2) stablelm-1.6b at full width and depth through the port's
-   ``Trainer``: 6 steps of 2 x 4096 tokens in 2 microbatches, finite
-   losses, ``flash_attention`` launched layers x microbatches a step and
-   ``flash_attention_bwd`` three times that (its delta pre-pass, dK/dV
-   and dQ kernels, each counted), a finite non-zero gradient on every
+   GQA, hubert-xlarge's D = 80, two ragged bf16 cases (``Sq != Skv`` with
+   GQA; MQA at D = 128 non-causal) and two f32 cases (ragged ``Sq !=
+   Skv``; no key at all), the forward's log-sum-exp against the plain
+   scores', timed at the training path's shape in turns with SDPA's
+   backward (and beside the plain version's), each of its ms, SDPA's ms,
+   the bound, TFLOP/s on the 5 products and three calls' bitwise equality
+   (also at llama3-8b's GQA) on lines of their own; (L2) stablelm-1.6b at
+   full width and depth through the port's ``Trainer``: 6 steps of 2 x
+   4096 tokens in 2 microbatches, finite losses, ``flash_attention``
+   launched layers x microbatches a step and
+   ``flash_attention_bwd`` three times that (its pre-pass, the one pass
+   and dQ's rounding, each counted), a finite non-zero gradient on every
    parameter leaf, ms a step against its floor, peak memory, the idle
    share of a traced step; (L3) a restart from a checkpoint on the card
    against an uninterrupted run (2 layers); (L4) rwkv6-1.6b's loss and
@@ -778,7 +782,7 @@ def training(torch, dev, kernels: dict) -> dict:
         max_abs_err=out["L1"]["max_abs_err"], ms=path["ms"], plain_ms=path["plain_ms"],
         bound_ms=path["bound_ms"], bound_by=path["bound_by"], library_ms=path["library_ms"],
         timing=path["timing"], shape=path["shape"], flops=path["flops"],
-        flop_convention=path["flop_convention"],
+        flop_convention=path["flop_convention"], tflops=path["tflops"],
         bitwise_repeatable=path["bitwise_repeatable"])
     add_launches(kernels["flash_attention_bwd"], "L", launches.get("flash_attention_bwd", 0))
     if not kernels["flash_attention_bwd"]["launches"]:

@@ -85,29 +85,80 @@
 // flash_attention_bwd: the backward, which the JAX package does not have
 // (it differentiates its plain attention with XLA; the port's training
 // needs one because its forward is this kernel, whose output has no
-// autograd graph).  FlashAttention-2's algorithm in three launches, no
-// atomics, so the result is bitwise repeatable:
-//   1. delta = rowsum(dO * O), one warp a row, f32;
-//   2. dK, dV: a block owns a tile of keys of one kv head and loops over
-//      its group's query heads (GQA sums in registers) and the query tiles
-//      from the causal start: P = exp(scale S - lse) recomputed from Q K^T,
-//      dV += P^T dO, dP = dO V^T, dS = P (dP - delta), dK += scale dS^T Q;
-//   3. dQ: a block owns a tile of query rows and loops over the kv tiles
-//      up to the causal end, recomputing S and dP: dQ = scale dS K.  The
-//      recompute costs 7 products against one pass's 5 (dQ by f32 atomics
-//      would save two, but sum in run-to-run order).
-// What bounds it: operations, 2.5x the forward's (5 products against 2).
-// * bf16: tensor cores through mma.sync m16n8k16 (bf16 x bf16 -> f32),
-//   4 warps a block of 16 rows each; tiles of bf16 rows in shared memory
-//   with 16 bytes of padding a row, so the 8 rows an ldmatrix reads sit in
-//   distinct bank groups; S^T and dP^T (dK/dV) or S and dP (dQ) stay in
-//   registers and become, rounded to bf16, the A fragments of the next
-//   products (their C and A fragments share a thread layout), B read by
-//   ldmatrix (.trans where the contraction runs along shared-memory rows).
-//   exp2 on the special-function unit.  Rows 16-byte aligned (the wrapper
-//   checks).  A wgmma/TMA design with warp specialisation is later work.
-// * f32: CUDA cores, f32 products, expf, the same tiling in f32 shared
-//   memory (the 1e-4 tolerance of the f32 route rules out bf16 operands).
+// autograd graph).  What bounds it: operations, 2.5x the forward's (5
+// products against 2).  Bitwise repeatable on both routes.
+// * bf16: FlashAttention-3's backward in one pass, three launches:
+//   1. bwd_prep_kernel: per row delta = rowsum(dO * O) and lse2 = lse *
+//      log2(e) (+inf for a row past Sq or one that saw no key, so its p is
+//      0), in (B, Hq, Sq_pad) rows padded to the query tile, delta 0 past
+//      Sq; it zeroes the f32 dQ sums and one counter per query tile;
+//   2. bwd_tc_kernel, the one pass: a CTA owns BC = 128 keys of one kv
+//      head and walks the query tiles of its query head from the causal
+//      start (with GQA one of the group's heads, below).  Consumer
+//      warpgroup w owns keys 64 w .. + 63 (wgmma's M).  Per tile of BR
+//      query rows, five products: S^T = K Q^T and dP^T = V dO^T (both
+//      operands K-major from the swizzled tiles), P^T = exp2(scale log2(e)
+//      S^T - lse2) and dS^T = P^T (dP^T - delta) in registers, dV += P^T
+//      dO and dK += dS^T Q with P^T and dS^T rounded to bf16 as register A
+//      operands (C and A fragments share a layout) and dO, Q read MN-major
+//      through the transpose bit; dS^T also goes to shared memory as bf16
+//      in TMA's 128-byte swizzle, and the partial dQ = dS K over the CTA's
+//      128 keys is one wgmma per warpgroup with A = dS^T read MN-major
+//      (transposed) and B = K MN-major: at D = 64 warpgroup w takes query
+//      rows 64 w .. + 63, at the 128-wide tile columns 64 w .. + 63.
+//      Producer warpgroup: warp 8 keeps a 2-stage ring of TMA loads in
+//      flight (Q and dO as 64-column boxes of a 4-d tensor map, 128-byte
+//      swizzle; lse2 and delta rows as 1-d bulk copies of the padded rows,
+//      so a tile past Sq reads nothing past their end), K and V once an
+//      item; warp 9 adds each partial dQ, which the consumers leave in one
+//      of two shared buffers in their fragment order, into the f32 scratch
+//      with one bulk reduce-add of BR x DT floats into L2
+//      (cp.reduce.async.bulk .add.f32).  setmaxnreg gives the consumers 240
+//      registers a thread and the producers 24.
+//   3. bwd_finish_kernel: dq = bf16(scale * the sum); with GQA also dK and
+//      dV, the sums over the group's query heads of f32 partials (below).
+//   The ordered dQ sum: the partials of one (batch, head, query tile) are
+//   added in ascending kv tile order.  Warp 9 of the CTA at kv tile j waits
+//   until the tile's counter equals j, adds, waits for the add to
+//   complete, and bumps the counter with a release; f32 adds in a fixed
+//   order give the same bits on every run (no atomicAdd whose order
+//   varies).  Work items (kv tile, batch, kv head) go j-major to a
+//   persistent grid of as many CTAs as fit on the card at once
+//   (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), each CTA taking
+//   items blockIdx.x + n gridDim.x in order: the lowest unfinished item's
+//   CTA is running and waits on nothing unfinished, so every wait ends.
+//   Causal tiles near the start carry the most work, so j-major is also
+//   longest first.  A wait that does not end traps (a fault, not a hang).
+//   With GQA (and some query row and key) an item is (kv tile, batch,
+//   query head): a CTA over the whole group would leave 16 x 8 = 128 items
+//   of unequal causal work for 132 SMs at llama3-8b's (2048, 32 on 8); each
+//   item writes its dK and dV as f32 partials, which the finish kernel sums
+//   over the group in head order.
+//   Tiles: BC = 128 keys; BR = 128 query rows at D = 64, 64 at the
+//   128-wide tile (S^T and dP^T are BR / 2 registers each a thread).  D =
+//   80 runs the 128-wide tile, columns 80-127 zero-filled by TMA (S^T and
+//   dP^T issue only the k-steps of real columns; dK, dV and dQ store only
+//   columns below 80).  Shared memory 199,760 bytes (D = 64) and 215,120
+//   (the 128-wide tile), one CTA an SM, 384 threads.  ptxas (sm_90a, CUDA
+//   12.9, -O3): 168 registers at entry (the CTA's 64,512, which setmaxnreg
+//   splits 24 / 240); spill stores of 60 bytes at D = 128, 44 at D = 80
+//   and 96 at D = 64 (more with a 40 / 232 split: part of it is the
+//   consumers').  Rows 16-byte aligned (TMA; the wrapper checks).
+//   The proxy fences are scoped: .shared::cta after the consumers' stores
+//   of dS^T and of the dQ partial, .global around the dQ warp's bulk add;
+//   an unscoped fence.proxy.async made the whole pass markedly slower.
+//   Tried on an H100 and dropped: two commit groups so that the
+//   exponentials run under the next product (a few per cent at the
+//   128-wide tile, slower at D = 64, where it spills more), S^T in two
+//   halves of query rows (no faster), stmatrix for dS^T (no faster, more
+//   spills), each warpgroup its own dQ over its own 64 keys with the
+//   second adding the first's partial in shared memory, no named barriers
+//   (slower, more spills).
+// * f32: CUDA cores, three kernels, no atomics: delta; dK/dV, a block per
+//   tile of keys over its group's heads and the query tiles; dQ, a block
+//   per query tile recomputing S and dP (7 products); f32 products and
+//   shared memory, expf (the 1e-4 tolerance of the f32 route rules out
+//   bf16 operands).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -686,17 +737,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, float
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// backward (flash_attention_bwd): the f32 route on CUDA cores, the bf16
-// route on tensor cores; the delta pre-pass for both
+// backward (flash_attention_bwd): the f32 route on CUDA cores (delta,
+// dK/dV, dQ), then the bf16 route's one pass on the tensor cores (one::)
 // ---------------------------------------------------------------------------
 namespace bw {
 
 constexpr int TX = 16, TY = 16, NTHREADS = TX * TY;
 constexpr int KV_BKV = 64, KV_BQ = 32;  // dK/dV: keys a block, query rows a step
 constexpr int Q_BQ = 64, Q_BKV = 32;    // dQ: query rows a block, keys a step
-
-__device__ __forceinline__ float ldf(const float* p) { return *p; }
-__device__ __forceinline__ float ldf(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
 template <int D>
 constexpr int dkdv_smem_floats() {
@@ -740,18 +788,18 @@ __device__ __forceinline__ float prob(float s, float L, int qi, int kj, int Skv,
 }
 
 // delta[b, h, s] = sum_d dO * O over one row a warp, f32
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(256)
-delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+delta_kernel(const float* __restrict__ o, const float* __restrict__ dout, float* __restrict__ delta,
              int B, int Hq, int Sq, Strides os, Strides dos) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * 8 + warp;  // over (B, Hq, Sq)
   if (row >= (long long)B * Hq * Sq) return;
   const int s = (int)(row % Sq), h = (int)((row / Sq) % Hq), b = (int)(row / ((long long)Sq * Hq));
-  const T* orow = o + b * os.b + s * os.s + h * os.h;
-  const T* drow = dout + b * dos.b + s * dos.s + h * dos.h;
+  const float* orow = o + b * os.b + s * os.s + h * os.h;
+  const float* drow = dout + b * dos.b + s * dos.s + h * dos.h;
   float acc = 0.f;
-  for (int d = lane; d < D; d += 32) acc = fmaf(ldf(orow + d), ldf(drow + d), acc);
+  for (int d = lane; d < D; d += 32) acc = fmaf(orow[d], drow[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
@@ -985,72 +1033,205 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float*
   }
 }
 
-// ---- the bf16 route: tensor cores (mma.sync m16n8k16, bf16 in, f32 sums) ----
+// the f32 route's three launches: delta, dK/dV, dQ (each skipped where its
+// grid is empty)
+template <int D>
+cudaError_t launch_f32(const float* q, const float* k, const float* v, const float* o,
+                       const float* dout, const float* lse, float* delta, float* dq, float* dk,
+                       float* dv, int B, int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
+                       Strides vs, Strides os, Strides dos, Strides dqs, Strides dks, Strides dvs,
+                       float scale, int causal, cudaStream_t st, int* launched) {
+  const long long rows = (long long)B * Hq * Sq;
+  if (rows > 0) {
+    delta_kernel<D><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(o, dout, delta, B, Hq, Sq,
+                                                                       os, dos);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
+  if (Skv > 0) {
+    constexpr int smem = dkdv_smem_floats<D>() * 4;
+    cudaError_t err =
+        cudaFuncSetAttribute(dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dkdv_kernel<D><<<dim3((Skv + KV_BKV - 1) / KV_BKV, Hkv, B), dim3(TX, TY), smem, st>>>(
+        q, k, v, dout, lse, delta, dk, dv, Hq, Sq, Skv, Hq / Hkv, qs, ks, vs, dos, dks, dvs,
+        scale, causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
+  if (Sq > 0) {
+    constexpr int smem = dq_smem_floats<D>() * 4;
+    cudaError_t err =
+        cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dq_kernel<D><<<dim3((Sq + Q_BQ - 1) / Q_BQ, Hq, B), dim3(TX, TY), smem, st>>>(
+        q, k, v, dout, lse, delta, dq, Hq, Sq, Skv, Hq / Hkv, qs, ks, vs, dos, dqs, scale, causal);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ++*launched;
+  }
+  return cudaSuccess;
+}
+
+// ---- the bf16 route: one pass on the tensor cores (wgmma, TMA) ----
 //
-// Tiles are bf16 rows in shared memory with a pitch of D + 8 elements (16
-// bytes of padding: the 8 rows an ldmatrix reads fall in 8 distinct 16-byte
-// bank groups).  A block is 4 warps; a warp owns 16 rows of its product.
+// A CTA owns BC = 128 keys of one kv head (64 for each of two consumer
+// warpgroups, wgmma's M) and walks its group's query heads and the query
+// tiles of BR rows from the causal start.  A producer warpgroup feeds it:
+// one warp keeps TMA loads in flight, one adds the dQ partials into an f32
+// scratch in a fixed order.  See the file's header.
+namespace one {
 
-constexpr int TC_WARPS = 4, TC_THREADS = 32 * TC_WARPS;
+using bf16 = __nv_bfloat16;
+constexpr int BC = 128;         // keys a CTA, 64 a consumer warpgroup
+constexpr int NTHREADS = 384;   // consumer warpgroups 0 and 1, producer warpgroup 2
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr uint32_t SPIN_LIMIT = 1u << 23;  // polls before a wait traps (a fault, not a hang)
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-// d (16 x 8) += a (16 x 16, row) * b (16 x 8, col)
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// the query rows a tile: 128 at D = 64, 64 at the 128-wide tile (registers)
+template <int DT>
+__host__ __device__ constexpr int rows() { return DT == 64 ? 128 : 64; }
 
-// acc (16 x 8 NJ) += A B^T over k < D: A 16 rows at sA, B 8 NJ rows at sB,
-// both bf16 row-major (k along a row) with pitch P
-template <int NJ, int D, int P>
-__device__ __forceinline__ void mma_nt(float (&acc)[NJ][4], uint32_t sA, uint32_t sB, int lane) {
-  const int r = lane & 7, m = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, sA + ((8 * (m & 1) + r) * P + 16 * kk + 8 * (m >> 1)) * 2);
-#pragma unroll
-    for (int j = 0; j < NJ; j += 2) {
-      uint32_t b[4];
-      ldsm_x4(b, sB + ((8 * j + 8 * (m >> 1) + r) * P + 16 * kk + 8 * (m & 1)) * 2);
-      mma16816(acc[j], a, b[0], b[1]);
-      mma16816(acc[j + 1], a, b[2], b[3]);
-    }
+// shared-memory byte offsets from the 1024-aligned base: K and V as DT / 64
+// boxes of [BC][64], two stages of Q and dO as boxes of [BR][64] (all in
+// TMA's 128-byte swizzle), dS^T as BR / 64 boxes of [BC][64] (the same
+// swizzle, written by the consumers), two dQ partials of BR x DT f32, the
+// stages' lse2 and delta rows, then the mbarriers
+template <int DT>
+struct Layout {
+  static constexpr int BR = rows<DT>();
+  static constexpr int KB = BC * DT * 2, QB = BR * DT * 2, DQF = BR * DT;
+  static constexpr int K = 0, V = KB, STAGE = 2 * KB;  // stage s: Q at STAGE + 2 s QB, dO after
+  static constexpr int DS = STAGE + 4 * QB;
+  static constexpr int DQ = DS + BC * BR * 2;          // buffer b at DQ + 4 b DQF
+  static constexpr int STATS = DQ + 8 * DQF;           // stage s: lse2 at STATS + 8 s BR, delta after
+  static constexpr int BARS = STATS + 16 * BR;
+  // full[2], empty[2], kv_full, kv_empty, dq_full[2], dq_empty[2]
+  static constexpr int FULL = BARS, EMPTY = BARS + 16, KV_FULL = BARS + 32, KV_EMPTY = BARS + 40,
+                       DQ_FULL = BARS + 48, DQ_EMPTY = BARS + 64;
+  static constexpr int BYTES = BARS + 80 + 1024;  // + the alignment of the base
+};
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// wait for the phase of parity `phase` to complete; trap instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t phase) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(bar), "r"(phase) : "memory");
+    if (done) return;
+    if (n > SPIN_LIMIT) __trap();
   }
 }
-
-// acc (16 x 8 ND) += A B: A (16 x 16 KS) in registers as mma A fragments,
-// B (16 KS x 8 ND) bf16 row-major (k along the rows) at sB with pitch P,
-// read transposed by ldmatrix
-template <int ND, int KS, int P>
-__device__ __forceinline__ void mma_rn(float (&acc)[ND][4], const uint32_t (&a)[KS][4],
-                                       uint32_t sB, int lane) {
-  const int r = lane & 7, m = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk)
-#pragma unroll
-    for (int j = 0; j < ND; j += 2) {
-      uint32_t b[4];
-      ldsm_x4_t(b, sB + ((16 * kk + 8 * (m & 1) + r) * P + 8 * j + 8 * (m >> 1)) * 2);
-      mma16816(acc[j], a[kk], b[0], b[1]);
-      mma16816(acc[j + 1], a[kk], b[2], b[3]);
-    }
+__device__ __forceinline__ void bar_sync(int id) {  // the 256 consumer threads
+  asm volatile("bar.sync %0, 256;\n" :: "r"(id) : "memory");
+}
+// order this thread's generic-proxy writes to shared memory before the
+// async proxy's reads (a wgmma, a bulk copy), or its global accesses with
+// the async proxy's
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+// a 1-d bulk copy of `bytes` (a multiple of 16) from global into shared memory
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+// global[0 .. bytes) += shared[0 .. bytes), f32 elementwise, in L2; waited for
+// to completion (the writes done) before it returns
+__device__ __forceinline__ void bulk_reduce_add(float* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
+               :: "l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void red_release_add(int* p, int v) {
+  asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" :: "l"(p), "r"(v) : "memory");
 }
 
-// C fragments of 2 KS n-tiles (16 x 16 KS, f32) as the A fragments of a
-// product over those columns, rounded to bf16
+// d (64 x 64 f32) (+)= A (64 x 16) * B (16 x 64), both in shared memory;
+// TA / TB: 0 K-major, 1 MN-major (transposed)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 128 f32) (+)= A (64 x 16) * B (16 x 128), both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[16][4], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// S^T or dP^T over N query rows, both operands K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss_k(float (&d)[N / 8][4], uint64_t da, uint64_t db,
+                                           int scale_d) {
+  if constexpr (N == 128) wgmma_ss_n128(d, da, db, scale_d);
+  else wgmma_ss_n64<0, 0>(d, da, db, scale_d);
+}
+template <int DT>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DT / 8][4], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DT == 128) tc::wgmma_rs_n128(d, a, db);
+  else tc::wgmma_rs_n64(d, a, db);
+}
+
+// C fragments of 2 KS n-tiles (f32) as the register A fragments of a
+// product over those columns, rounded to bf16 (C and A share a layout)
 template <int KS>
 __device__ __forceinline__ void to_a(uint32_t (&a)[KS][4], const float (&c)[2 * KS][4]) {
 #pragma unroll
@@ -1062,302 +1243,492 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[KS][4], const float (&c)[2 * 
   }
 }
 
-// rows [r0, r0 + n) of one head of a (B, S, H, D) bf16 tensor into shared
-// memory (pitch P), 16 bytes a thread, zeros past S; rows 16-byte aligned
-template <int D, int P>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* base,
-                                          long long ss, int r0, int n, int S) {
-  constexpr int CH = D / 8;
-  for (int i = threadIdx.x; i < n * CH; i += TC_THREADS) {
-    const int r = i / CH, c = i % CH, row = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < S) val = *reinterpret_cast<const uint4*>(base + row * ss + 8 * c);
-    *reinterpret_cast<uint4*>(dst + r * P + 8 * c) = val;
+// The work a CTA walks, in the same order in each of its roles: items
+// (kv tile j, batch, kv head) j-major, blockIdx.x + n gridDim.x; in an
+// item its group's query heads and the query tiles from the causal start.
+// split (GQA): an item is (kv tile, batch, query head) instead, so that
+// causal kv tiles of unequal work spread over the grid; its dK and dV are
+// f32 partials that the finish kernel sums over the group in a fixed order.
+struct Work {
+  int B, Hq, Hkv, Sq, Skv, nqt, causal, split;
+  __device__ int heads() const { return split ? Hq : Hkv; }  // item heads a batch
+  __device__ int items() const { return ((Skv + BC - 1) / BC) * B * heads(); }
+  // item it: kv tile j, batch b, kv head hk, its first query head h0 and count ng
+  __device__ void item(int it, int& j, int& b, int& hk, int& h0, int& ng) const {
+    const int nh = heads(), group = Hq / Hkv, hi = it % nh;
+    j = it / (B * nh);
+    b = (it / nh) % B;
+    hk = split ? hi / group : hi;
+    h0 = split ? hi : hk * group;
+    ng = split ? 1 : group;
+  }
+};
+
+// Pre-pass: per row of the padded (B, Hq, Sq_pad) rows, delta = rowsum(dO
+// * O) and lse2 = lse * log2(e) (+inf for a row past Sq or one that saw no
+// key, so its p is exp2(-inf) = 0), delta 0 past Sq; the row's DT floats of
+// dq_accum zeroed; the first row of a query tile zeroes the tile's counter.
+template <int DT, int D>
+__global__ void __launch_bounds__(256)
+bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+            const float* __restrict__ lse, float* __restrict__ lse2, float* __restrict__ delta,
+            int* __restrict__ counters, float* __restrict__ dq_accum, int B, int Hq, int Sq,
+            int Sq_pad, Strides os, Strides dos) {
+  constexpr int BR = rows<DT>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * 8 + warp;  // over (B, Hq, Sq_pad)
+  if (row >= (long long)B * Hq * Sq_pad) return;
+  const int s = (int)(row % Sq_pad);
+  const long long bh = row / Sq_pad;
+  float acc = 0.f;
+  if (s < Sq) {
+    const int h = (int)(bh % Hq), b = (int)(bh / Hq);
+    const bf16* orow = o + b * os.b + s * os.s + h * os.h;
+    const bf16* drow = dout + b * dos.b + s * dos.s + h * dos.h;
+    for (int d = lane; d < D; d += 32)
+      acc = fmaf(__bfloat162float(orow[d]), __bfloat162float(drow[d]), acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  }
+  float* z = dq_accum + row * DT;
+  for (int d = 2 * lane; d < DT; d += 64) *reinterpret_cast<float2*>(z + d) = make_float2(0.f, 0.f);
+  if (lane == 0) {
+    const float l = s < Sq ? lse[bh * Sq + s] : neg_inf();
+    lse2[row] = l == neg_inf() ? __int_as_float(0x7f800000) : l * LOG2E;
+    delta[row] = acc;
+    if (s % BR == 0) counters[row / BR] = 0;
   }
 }
 
-// lse in the log2 domain for exp2: +inf for a row past Sq or one that saw
-// no key, so its p is exp2(-inf) = 0
-__device__ __forceinline__ float lse2_of(const float* lse, int row, int Sq) {
-  const float l = row < Sq ? lse[row] : neg_inf();
-  return l == neg_inf() ? __int_as_float(0x7f800000) : l * LOG2E;
+// Finish: dq = bf16(scale * dq_accum), one CTA a (batch, head, query tile);
+// dq_accum holds a tile in the consumers' fragment order (see bwd_tc_kernel).
+// With split items, the CTAs after those sum each dK and dV column pair
+// over the group's query heads in head order, f32, into bf16.
+template <int DT>
+__global__ void __launch_bounds__(256)
+bwd_finish_kernel(const float* __restrict__ dq_accum, bf16* __restrict__ dq, int B, int Hq,
+                  int Hkv, int Sq, int Skv, int D, int nqt, Strides dqs, float scale,
+                  const float* __restrict__ dkv, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                  Strides dks, Strides dvs) {
+  constexpr int BR = rows<DT>();
+  const long long tiles = (long long)B * Hq * nqt;
+  if (blockIdx.x >= tiles) {
+    const long long pair = (blockIdx.x - tiles) * blockDim.x + threadIdx.x;
+    const int half = D / 2;
+    if (pair >= (long long)B * Hkv * Skv * half) return;
+    const int col = 2 * (int)(pair % half), key = (int)((pair / half) % Skv);
+    const int hk = (int)((pair / half / Skv) % Hkv), b = (int)(pair / half / Skv / Hkv);
+    const int group = Hq / Hkv, skv_pad = (Skv + BC - 1) / BC * BC;
+    const long long part = (long long)B * Hq * skv_pad * DT;  // dK's partials, then dV's
+    float2 sk = make_float2(0.f, 0.f), sv = sk;
+    for (int g = 0; g < group; ++g) {
+      const long long at = (((long long)b * Hq + hk * group + g) * skv_pad + key) * DT + col;
+      const float2 pk = *reinterpret_cast<const float2*>(dkv + at);
+      const float2 pv = *reinterpret_cast<const float2*>(dkv + part + at);
+      sk.x += pk.x, sk.y += pk.y, sv.x += pv.x, sv.y += pv.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(dk + b * dks.b + key * dks.s + hk * dks.h + col) =
+        __floats2bfloat162_rn(sk.x, sk.y);
+    *reinterpret_cast<__nv_bfloat162*>(dv + b * dvs.b + key * dvs.s + hk * dvs.h + col) =
+        __floats2bfloat162_rn(sv.x, sv.y);
+    return;
+  }
+  const long long tile = blockIdx.x;
+  const int i = (int)(tile % nqt), h = (int)((tile / nqt) % Hq), b = (int)(tile / nqt / Hq);
+  const float4* src = reinterpret_cast<const float4*>(dq_accum + tile * (BR * DT));
+  for (int f = threadIdx.x; f < BR * DT / 4; f += blockDim.x) {
+    const int lane = f & 31, n = (f >> 5) & 7, wi = (f >> 8) & 3, w = f >> 10;
+    const int row = (BR == 128 ? 64 * w : 0) + 16 * wi + (lane >> 2);
+    const int col = (DT == 128 ? 64 * w : 0) + 8 * n + 2 * (lane & 3);
+    if (col >= D) continue;
+    const float4 v = src[f];
+    const int q = i * BR + row;
+    bf16* out = dq + b * dqs.b + h * dqs.h + col;
+    if (q < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out + q * dqs.s) =
+          __floats2bfloat162_rn(v.x * scale, v.y * scale);
+    if (q + 8 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(out + (q + 8) * dqs.s) =
+          __floats2bfloat162_rn(v.z * scale, v.w * scale);
+  }
 }
 
-template <int D>
-__host__ __device__ constexpr int tc_rows() { return D <= 80 ? 64 : 32; }  // a step tile's rows
+// The one pass.  Consumer warpgroup w (warps 4w .. 4w + 3) owns keys k0 +
+// 64 w .. + 63; warp 8 loads, warp 9 adds dQ; warps 10 and 11 only give
+// their registers back.
+template <int DT, int D>
+__global__ void __launch_bounds__(NTHREADS, 1)
+bwd_tc_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+            const float* __restrict__ lse2, const float* __restrict__ delta,
+            int* __restrict__ counters, float* __restrict__ dq_accum, bf16* __restrict__ dk,
+            bf16* __restrict__ dv, float* __restrict__ dkv, Work wk, Strides dks, Strides dvs,
+            float scale) {
+  using L = Layout<DT>;
+  constexpr int BR = L::BR;
+  constexpr int KD = DT / 16;  // k-steps of S^T and dP^T over the tile width
+  constexpr int NS = BR / 8;   // 8-column n-tiles of S^T (query rows)
+  constexpr int ND = DT / 8;   // n-tiles of dK and dV
+  constexpr int KS = BR / 16;  // k-steps of dK and dV (query rows)
+  constexpr int DB = DT / 64;  // 64-column boxes a row
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = tc::smem_u32(smem_raw);
+  const uint32_t pad = (1024u - (raw & 1023u)) & 1023u;
+  unsigned char* base = smem_raw + pad;
+  const uint32_t sb = raw + pad;
 
-template <int D>
-constexpr int dkdv_tc_smem() {
-  return (2 * 64 + 2 * tc_rows<D>()) * (D + 8) * 2 + 2 * tc_rows<D>() * 4;
-}
-template <int D>
-constexpr int dq_tc_smem() { return (2 * 64 + 2 * tc_rows<D>()) * (D + 8) * 2; }
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n_items = wk.items();
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      tc::mbar_init(sb + L::FULL + 8 * s, 1);
+      tc::mbar_init(sb + L::EMPTY + 8 * s, 8);
+      tc::mbar_init(sb + L::DQ_FULL + 8 * s, 8);
+      tc::mbar_init(sb + L::DQ_EMPTY + 8 * s, 1);
+    }
+    tc::mbar_init(sb + L::KV_FULL, 1);
+    tc::mbar_init(sb + L::KV_EMPTY, 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-// dK and dV of 64 keys of one kv head (16 a warp): over its group's query
-// heads and the query tiles from the causal start, S^T = K Q^T and
-// dP^T = V dO^T, then P^T and dS^T in registers feed dV += P^T dO and
-// dK += dS^T Q as A fragments
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-               const float* __restrict__ lse, const float* __restrict__ delta,
-               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int Hq, int Sq,
-               int Skv, int group, Strides qs, Strides ks, Strides vs, Strides dos, Strides dks,
-               Strides dvs, float scale, int causal) {
-  constexpr int BC = 64, BR = tc_rows<D>(), P = D + 8;
-  constexpr int NJ = BR / 8, ND = D / 8, KS = BR / 16;
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_tc);
-  bf16* Vs = Ks + BC * P;
-  bf16* Qs = Vs + BC * P;
-  bf16* dOs = Qs + BR * P;
-  float* Ls = reinterpret_cast<float*>(dOs + BR * P);
-  float* Dl = Ls + BR;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BC, hk = blockIdx.y, b = blockIdx.z;
-  const int kw = k0 + 16 * warp;  // this warp's first key
-  load_tile<D, P>(Ks, k + b * ks.b + hk * ks.h, ks.s, k0, BC, Skv);
-  load_tile<D, P>(Vs, v + b * vs.b + hk * vs.h, vs.s, k0, BC, Skv);
-  const uint32_t sK = tc::smem_u32(Ks + 16 * warp * P), sV = tc::smem_u32(Vs + 16 * warp * P);
-  const uint32_t sQ = tc::smem_u32(Qs), sdO = tc::smem_u32(dOs);
-  const float scale_log2 = scale * LOG2E;
-
-  float dk_acc[ND][4], dv_acc[ND][4];
+  if (warp >= 8) {  // ---------------- producer warpgroup ----------------
+    // 128 x 24 + 256 x 240 registers: the 168 x 384 the CTA starts with
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (lane != 0 || warp > 9) return;
+    int T = 0, I = 0;
+    for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++I) {
+      int j, b, hk, h0, ng;
+      wk.item(it, j, b, hk, h0, ng);
+      const int k0 = j * BC, i0 = wk.causal ? k0 / BR : 0;
+      if (warp == 8) {  // loads
+        mbar_wait(sb + L::KV_EMPTY, (I & 1) ^ 1);
+        tc::mbar_expect_tx(sb + L::KV_FULL, 2 * L::KB);
 #pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  const int qstart = causal ? (k0 / BR) * BR : 0;
-  for (int gi = 0; gi < group; ++gi) {
-    const int h = hk * group + gi;
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* dob = dout + b * dos.b + h * dos.h;
-    const long long so = ((long long)b * Hq + h) * Sq;
-    for (int q0 = qstart; q0 < Sq; q0 += BR) {
-      __syncthreads();  // the previous step's Q, dO and stats are no longer read
-      load_tile<D, P>(Qs, qb, qs.s, q0, BR, Sq);
-      load_tile<D, P>(dOs, dob, dos.s, q0, BR, Sq);
-      if (tid < BR) {
-        Ls[tid] = lse2_of(lse + so, q0 + tid, Sq);
-        Dl[tid] = q0 + tid < Sq ? delta[so + q0 + tid] : 0.f;
-      }
-      __syncthreads();
-      if (causal && kw > q0 + BR - 1) continue;  // every key of the warp after every row
-
-      float s[NJ][4], dp[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      mma_nt<NJ, D, P>(s, sK, sQ, lane);
-      mma_nt<NJ, D, P>(dp, sV, sdO, lane);
-      // rows: keys kw + g (+8); columns: query rows q0 + 8j + 2t (+1)
-      const bool mask = kw + 15 >= Skv || q0 + BR > Sq || (causal && kw + 15 > q0);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = 8 * j + 2 * t + (e & 1), key = kw + g + 8 * (e >> 1);
-          float p = tc::fast_exp2(s[j][e] * scale_log2 - Ls[ql]);
-          if (mask && (key >= Skv || (causal && key > q0 + ql))) p = 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - Dl[ql]);
+        for (int db = 0; db < DB; ++db) {
+          tc::tma_load(sb + L::K + db * BC * 128, &tk, db * 64, k0, hk, b, sb + L::KV_FULL);
+          tc::tma_load(sb + L::V + db * BC * 128, &tv, db * 64, k0, hk, b, sb + L::KV_FULL);
         }
-      uint32_t pa[KS][4], da[KS][4];
-      to_a<KS>(pa, s);
-      to_a<KS>(da, dp);
-      mma_rn<ND, KS, P>(dv_acc, pa, sdO, lane);
-      mma_rn<ND, KS, P>(dk_acc, da, sQ, lane);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int key = kw + g + 8 * r;
-    if (key >= Skv) continue;
-    bf16* dkrow = dk + b * dks.b + key * dks.s + hk * dks.h + 2 * t;
-    bf16* dvrow = dv + b * dvs.b + key * dvs.s + hk * dvs.h + 2 * t;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * n) =
-          __floats2bfloat162_rn(dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
-      *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * n) =
-          __floats2bfloat162_rn(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
-    }
-  }
-}
-
-// dQ of 64 query rows of one query head (16 a warp), over the kv tiles up
-// to the causal end (the longest rows' blocks first): S = Q K^T and
-// dP = dO V^T, then dS in registers feeds dQ += dS K
-template <int D>
-__global__ void __launch_bounds__(TC_THREADS)
-dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-             const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             __nv_bfloat16* __restrict__ dq, int Hq, int Sq, int Skv, int group, Strides qs,
-             Strides ks, Strides vs, Strides dos, Strides dqs, float scale, int causal) {
-  constexpr int BQ = 64, BK = tc_rows<D>(), P = D + 8;
-  constexpr int NJ = BK / 8, ND = D / 8, KS = BK / 16;
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem_tc[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc);
-  bf16* dOs = Qs + BQ * P;
-  bf16* Ks = dOs + BQ * P;
-  bf16* Vs = Ks + BK * P;
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / group, qw = q0 + 16 * warp;  // this warp's first row
-  const long long so = ((long long)b * Hq + h) * Sq;
-  load_tile<D, P>(Qs, q + b * qs.b + h * qs.h, qs.s, q0, BQ, Sq);
-  load_tile<D, P>(dOs, dout + b * dos.b + h * dos.h, dos.s, q0, BQ, Sq);
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-  const uint32_t sQ = tc::smem_u32(Qs + 16 * warp * P), sdO = tc::smem_u32(dOs + 16 * warp * P);
-  const uint32_t sK = tc::smem_u32(Ks), sV = tc::smem_u32(Vs);
-  const float scale_log2 = scale * LOG2E;
-  float L[2], Dr[2];  // this thread's rows qw + g, qw + g + 8
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qw + g + 8 * r;
-    L[r] = lse2_of(lse + so, row, Sq);
-    Dr[r] = row < Sq ? delta[so + row] : 0.f;
-  }
-
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  const int kv_end = causal ? min(Skv, q0 + BQ) : Skv;
-  for (int k0 = 0; k0 < kv_end; k0 += BK) {
-    __syncthreads();  // Q and dO are in; the previous K and V are no longer read
-    load_tile<D, P>(Ks, kb, ks.s, k0, BK, Skv);
-    load_tile<D, P>(Vs, vb, vs.s, k0, BK, Skv);
-    __syncthreads();
-    if (causal && k0 > qw + 15) continue;  // every key after every row of the warp
-
-    float s[NJ][4], dp[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-    mma_nt<NJ, D, P>(s, sQ, sK, lane);
-    mma_nt<NJ, D, P>(dp, sdO, sV, lane);
-    // rows: query rows qw + g (+8); columns: keys k0 + 8j + 2t (+1)
-    const bool mask = k0 + BK > Skv || qw + 15 >= Sq || (causal && k0 + BK - 1 > qw);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + 2 * t + (e & 1), r = e >> 1;
-        float p = tc::fast_exp2(s[j][e] * scale_log2 - L[r]);
-        if (mask && (key >= Skv || (causal && key > qw + g + 8 * r))) p = 0.f;
-        dp[j][e] = p * (dp[j][e] - Dr[r]);
       }
-    uint32_t da[KS][4];
-    to_a<KS>(da, dp);
-    mma_rn<ND, KS, P>(acc, da, sK, lane);
+      for (int h = h0; h < h0 + ng; ++h) {
+        const long long bh = (long long)b * wk.Hq + h;
+        for (int i = i0; i < wk.nqt; ++i, ++T) {
+          const int st = T & 1;
+          const uint32_t ph = (T >> 1) & 1;
+          if (warp == 8) {
+            const uint32_t full = sb + L::FULL + 8 * st, sQ = sb + L::STAGE + 2 * st * L::QB;
+            mbar_wait(sb + L::EMPTY + 8 * st, ph ^ 1);
+            tc::mbar_expect_tx(full, 2 * L::QB + 8 * BR);
+#pragma unroll
+            for (int db = 0; db < DB; ++db) {
+              tc::tma_load(sQ + db * BR * 128, &tq, db * 64, i * BR, h, b, full);
+              tc::tma_load(sQ + L::QB + db * BR * 128, &tdo, db * 64, i * BR, h, b, full);
+            }
+            const long long r0 = (bh * wk.nqt + i) * BR;
+            bulk_load(sb + L::STATS + 8 * st * BR, lse2 + r0, 4 * BR, full);
+            bulk_load(sb + L::STATS + 8 * st * BR + 4 * BR, delta + r0, 4 * BR, full);
+          } else {  // the ordered dQ sum: kv tile j adds after tiles 0 .. j - 1
+            mbar_wait(sb + L::DQ_FULL + 8 * st, ph);
+            const long long t = bh * wk.nqt + i;
+            for (uint32_t n = 0; ld_acquire(counters + t) != j; ++n)
+              if (n > SPIN_LIMIT) __trap();
+            fence_async_global();
+            bulk_reduce_add(dq_accum + t * L::DQF, sb + L::DQ + 4 * st * L::DQF, 4 * L::DQF);
+            fence_async_global();
+            red_release_add(counters + t, 1);
+            mbar_arrive(sb + L::DQ_EMPTY + 8 * st);
+          }
+        }
+      }
+    }
+    return;
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = qw + g + 8 * r;
-    if (row >= Sq) continue;
-    bf16* out = dq + b * dqs.b + row * dqs.s + h * dqs.h + 2 * t;
+  // ---------------- consumer warpgroups ----------------
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int w = warp >> 2, wi = warp & 3, g8 = lane >> 2, t4 = lane & 3;
+  const float scale_log2 = scale * LOG2E;
+  const uint32_t sK = sb + L::K, sV = sb + L::V, sDS = sb + L::DS;
+  int T = 0, I = 0;
+  for (int it = blockIdx.x; it < n_items; it += gridDim.x, ++I) {
+    int j, b, hk, h0, ng;
+    wk.item(it, j, b, hk, h0, ng);
+    const int k0 = j * BC, i0 = wk.causal ? k0 / BR : 0;
+    const int kw = k0 + 64 * w;  // this warpgroup's first key
+    float dk_acc[ND][4], dv_acc[ND][4];
 #pragma unroll
     for (int n = 0; n < ND; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
-          __floats2bfloat162_rn(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+    mbar_wait(sb + L::KV_FULL, I & 1);
+
+    for (int g = 0; g < ng; ++g) {
+      for (int i = i0; i < wk.nqt; ++i, ++T) {
+        const int st = T & 1, q0 = i * BR;
+        const uint32_t ph = (T >> 1) & 1;
+        const uint32_t sQ = sb + L::STAGE + 2 * st * L::QB, sdO = sQ + L::QB;
+        const float* lse2s = reinterpret_cast<const float*>(base + L::STATS + 8 * st * BR);
+        const float* dels = lse2s + BR;
+        mbar_wait(sb + L::FULL + 8 * st, ph);
+
+        // S^T = K Q^T and dP^T = V dO^T: rows this warpgroup's keys, columns
+        // the tile's query rows, all operands K-major (a k-step of 16 moves
+        // 32 bytes along the swizzled 128-byte rows)
+        float s[NS][4], dp[NS][4];
+        tc::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+          if (kk * 16 < D) {  // k-steps in the zero columns past D are not issued
+            const uint32_t ka = (kk >> 2) * (BC * 128) + 64 * w * 128 + (kk & 3) * 32;
+            const uint32_t qb = (kk >> 2) * (BR * 128) + (kk & 3) * 32;
+            wgmma_ss_k<BR>(s, tc::desc(sK + ka, 16, 1024), tc::desc(sQ + qb, 16, 1024), kk > 0);
+            wgmma_ss_k<BR>(dp, tc::desc(sV + ka, 16, 1024), tc::desc(sdO + qb, 16, 1024), kk > 0);
+          }
+        tc::wg_commit();
+        tc::wg_wait0();
+
+        // P^T = exp2(scale log2(e) S^T - lse2), dS^T = P^T (dP^T - delta): a
+        // thread's rows are keys kw + 16 wi + g8 (+ 8), its columns query rows
+        // q0 + 8 n + 2 t4 (+ 1); only tiles crossing the end of Skv or the
+        // diagonal test the mask (a row past Sq has lse2 +inf: p = 0)
+        const bool mask = kw + 63 >= wk.Skv || (wk.causal && kw + 63 > q0);
+        const int key0 = kw + 16 * wi + g8;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lse2s + 8 * n + 2 * t4);
+          const float2 dl = *reinterpret_cast<const float2*>(dels + 8 * n + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = tc::fast_exp2(s[n][e] * scale_log2 - ((e & 1) ? l2.y : l2.x));
+            if (mask) {
+              const int key = key0 + 8 * (e >> 1), q = q0 + 8 * n + 2 * t4 + (e & 1);
+              if (key >= wk.Skv || (wk.causal && key > q)) p = 0.f;
+            }
+            s[n][e] = p;
+            dp[n][e] = p * (dp[n][e] - ((e & 1) ? dl.y : dl.x));
+          }
+        }
+        uint32_t pa[KS][4], da[KS][4];
+        to_a<KS>(pa, s);
+        to_a<KS>(da, dp);
+
+        // dV += P^T dO and dK += dS^T Q: A in registers, B MN-major
+        // (64-column boxes BR * 128 bytes apart, 8-row groups 1024 apart)
+        tc::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          wgmma_rs<DT>(dv_acc, pa[kk], tc::desc(sdO + kk * 16 * 128, BR * 128, 1024));
+          wgmma_rs<DT>(dk_acc, da[kk], tc::desc(sQ + kk * 16 * 128, BR * 128, 1024));
+        }
+        tc::wg_commit();
+
+        // dS^T into shared memory as bf16 rows of 64 query rows (128 bytes)
+        // a key, in TMA's 128-byte swizzle: 16-byte chunk c of row r at
+        // chunk c ^ (r % 8).  First both warpgroups are done reading the
+        // previous tile's.
+        bar_sync(1);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int ql = 16 * kk + 8 * (x >> 1) + 2 * t4;  // query row in the tile
+            const int kl = 64 * w + 16 * wi + g8 + 8 * (x & 1);  // key in the CTA's tile
+            const uint32_t addr = sDS + (ql >> 6) * (BC * 128) + kl * 128 +
+                                  ((((ql & 63) >> 3) ^ (kl & 7)) << 4) + (ql & 7) * 2;
+            asm volatile("st.shared.u32 [%0], %1;\n" :: "r"(addr), "r"(da[kk][x]) : "memory");
+          }
+        fence_async_shared();
+        bar_sync(2);
+
+        // this warpgroup's part of the partial dQ = dS K over the CTA's 128
+        // keys: at D = 64 query rows 64 w .. + 63, else columns 64 w .. + 63;
+        // A = dS (dS^T read MN-major), B = K (MN-major)
+        float dq[8][4];
+        const uint32_t abox = (BR == 128 ? w : 0) * (BC * 128);
+        const uint32_t bbox = (DT == 128 ? w : 0) * (BC * 128);
+        tc::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BC / 16; ++kk)
+          wgmma_ss_n64<1, 1>(dq, tc::desc(sDS + abox + kk * 16 * 128, BC * 128, 1024),
+                             tc::desc(sK + bbox + kk * 16 * 128, BC * 128, 1024), kk > 0);
+        tc::wg_commit();
+        tc::wg_wait0();  // dV, dK and dQ: the stage and dS^T are no longer read
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sb + L::EMPTY + 8 * st);
+
+        // the partial into dQ buffer T & 1 in fragment order: float4 (((w * 4
+        // + wi) * 8 + n) * 32 + lane), conflict-free; the dQ warp adds it
+        mbar_wait(sb + L::DQ_EMPTY + 8 * st, ph ^ 1);
+        float4* dst = reinterpret_cast<float4*>(base + L::DQ + 4 * st * L::DQF) +
+                      (w * 4 + wi) * 8 * 32 + lane;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) dst[n * 32] = make_float4(dq[n][0], dq[n][1], dq[n][2], dq[n][3]);
+        fence_async_shared();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(sb + L::DQ_FULL + 8 * st);
+      }
+    }
+
+    // dK = scale dS^T Q and dV of this thread's keys kw + 16 wi + g8 (+ 8):
+    // bf16 into dk and dv, or with split items f32 partials of query head
+    // h0 into dkv (dK's (B, Hq, Skv_pad, DT), then dV's)
+    const int skv_pad = (wk.Skv + BC - 1) / BC * BC;
+    const long long part = (long long)wk.B * wk.Hq * skv_pad * DT;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = kw + 16 * wi + g8 + 8 * r;
+      if (key >= wk.Skv) continue;
+      bf16* dkrow = dk + b * dks.b + key * dks.s + hk * dks.h + 2 * t4;
+      bf16* dvrow = dv + b * dvs.b + key * dvs.s + hk * dvs.h + 2 * t4;
+      float* prow = dkv + (((long long)b * wk.Hq + h0) * skv_pad + key) * DT + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < ND; ++n)
+        if (8 * n < D) {
+          const float2 vk = make_float2(dk_acc[n][2 * r] * scale, dk_acc[n][2 * r + 1] * scale);
+          const float2 vv = make_float2(dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
+          if (wk.split) {
+            *reinterpret_cast<float2*>(prow + 8 * n) = vk;
+            *reinterpret_cast<float2*>(prow + part + 8 * n) = vv;
+          } else {
+            *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * n) = __floats2bfloat162_rn(vk.x, vk.y);
+            *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * n) = __floats2bfloat162_rn(vv.x, vv.y);
+          }
+        }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(sb + L::KV_EMPTY);  // K and V no longer read
   }
 }
 
-// the dK/dV and dQ kernels of a route, their rows a block and shared memory
-template <typename T, int D>
-struct Route;
-template <int D>
-struct Route<float, D> {  // CUDA cores
-  static constexpr auto dkdv = dkdv_kernel<D>;
-  static constexpr auto dq = dq_kernel<D>;
-  static constexpr int kv_rows = KV_BKV, q_rows = Q_BQ;
-  static constexpr int dkdv_smem = dkdv_smem_floats<D>() * 4, dq_smem = dq_smem_floats<D>() * 4;
-  static dim3 block() { return dim3(TX, TY); }
+struct Workspace {
+  long long lse2, delta, counters, dq_accum, dkv, bytes;
+  bool split;
 };
-template <int D>
-struct Route<__nv_bfloat16, D> {  // tensor cores
-  static constexpr auto dkdv = dkdv_tc_kernel<D>;
-  static constexpr auto dq = dq_tc_kernel<D>;
-  static constexpr int kv_rows = 64, q_rows = 64;
-  static constexpr int dkdv_smem = dkdv_tc_smem<D>(), dq_smem = dq_tc_smem<D>();
-  static dim3 block() { return dim3(TC_THREADS); }
-};
+inline long long up256(long long x) { return (x + 255) / 256 * 256; }
+inline int tile_width(int D) { return D == 64 ? 64 : 128; }
+// the workspace: lse2 and delta (B, Hq, Sq_pad) f32, a counter per (batch,
+// head, query tile), dq_accum (B, Hq, Sq_pad, DT) f32, and with split items
+// (GQA, some query row and key) dK's and dV's partials (B, Hq, Skv_pad, DT)
+// f32, each 256-byte aligned
+inline Workspace workspace(int B, int Hq, int Hkv, int Sq, int Skv, int D) {
+  const int DT = tile_width(D), BR = DT == 64 ? rows<64>() : rows<128>();
+  const long long pad_rows = (long long)B * Hq * ((Sq + BR - 1) / BR * BR);
+  Workspace w;
+  w.split = Hq != Hkv && Sq > 0 && Skv > 0;
+  w.lse2 = 0;
+  w.delta = up256(pad_rows * 4);
+  w.counters = w.delta + up256(pad_rows * 4);
+  w.dq_accum = w.counters + up256(pad_rows / BR * 4);
+  w.dkv = w.dq_accum + up256(pad_rows * DT * 4);
+  const long long skv_pad = (long long)(Skv + BC - 1) / BC * BC;
+  w.bytes = w.dkv + (w.split ? 2 * (long long)B * Hq * skv_pad * DT * 4 : 0);
+  return w;
+}
 
-template <typename T, int D>
+template <int DT, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
-                   const float* lse, float* delta, void* dq, void* dk, void* dv, int B, int Hq,
+                   const float* lse, void* work, void* dq, void* dk, void* dv, int B, int Hq,
                    int Hkv, int Sq, int Skv, Strides qs, Strides ks, Strides vs, Strides os,
                    Strides dos, Strides dqs, Strides dks, Strides dvs, float scale, int causal,
                    cudaStream_t st, int* launched) {
-  using R = Route<T, D>;
-  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
-          *tv = static_cast<const T*>(v), *tdo = static_cast<const T*>(dout);
-  const long long rows = (long long)B * Hq * Sq;
-  if (rows > 0) {
-    delta_kernel<T, D><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
-        static_cast<const T*>(o), tdo, delta, B, Hq, Sq, os, dos);
+  constexpr int BR = rows<DT>();
+  const int nqt = (Sq + BR - 1) / BR, Sq_pad = nqt * BR;
+  const Workspace ws = workspace(B, Hq, Hkv, Sq, Skv, D);
+  unsigned char* wb = static_cast<unsigned char*>(work);
+  float* lse2 = reinterpret_cast<float*>(wb + ws.lse2);
+  float* delta = reinterpret_cast<float*>(wb + ws.delta);
+  int* counters = reinterpret_cast<int*>(wb + ws.counters);
+  float* dq_accum = reinterpret_cast<float*>(wb + ws.dq_accum);
+  float* dkv = reinterpret_cast<float*>(wb + ws.dkv);
+  const long long rows_pad = (long long)B * Hq * Sq_pad;
+  if (rows_pad > 0) {
+    bwd_prep_kernel<DT, D><<<(unsigned)((rows_pad + 7) / 8), 256, 0, st>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, lse2, delta, counters,
+        dq_accum, B, Hq, Sq, Sq_pad, os, dos);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ++*launched;
   }
   if (Skv > 0) {
-    cudaError_t err = cudaFuncSetAttribute(R::dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           R::dkdv_smem);
+    constexpr int smem = Layout<DT>::BYTES;
+    auto kernel = bwd_tc_kernel<DT, D>;
+    CUtensorMap tq{}, tk, tv, tdo{};  // with Sq = 0 the query maps are never read
+    cudaError_t err = tc::make_map(&tk, k, B, Skv, Hkv, D, ks, BC);
+    if (err == cudaSuccess) err = tc::make_map(&tv, v, B, Skv, Hkv, D, vs, BC);
+    if (err == cudaSuccess && Sq > 0) err = tc::make_map(&tq, q, B, Sq, Hq, D, qs, BR);
+    if (err == cudaSuccess && Sq > 0) err = tc::make_map(&tdo, dout, B, Sq, Hq, D, dos, BR);
+    // a persistent grid of CTAs that are all resident at once, so that the
+    // ordered dQ sum's waits always point at a running CTA; the shared
+    // memory attribute and the CTAs that fit are set up once a device
+    static int cap_dev = -1, cap = 0;
+    int dev = 0;
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess && dev != cap_dev) {
+      int sms = 0, per_sm = 0;
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err == cudaSuccess)
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem);
+      if (err == cudaSuccess) cap_dev = dev, cap = per_sm * sms;
+    }
     if (err != cudaSuccess) return err;
-    R::dkdv<<<dim3((Skv + R::kv_rows - 1) / R::kv_rows, Hkv, B), R::block(), R::dkdv_smem, st>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Hq, Sq, Skv,
-        Hq / Hkv, qs, ks, vs, dos, dks, dvs, scale, causal);
+    if (cap < 1) return cudaErrorInvalidConfiguration;
+    const Work wk{B, Hq, Hkv, Sq, Skv, nqt, causal, ws.split};
+    const long long items = (long long)((Skv + BC - 1) / BC) * B * (ws.split ? Hq : Hkv);
+    const int grid = (int)(items < cap ? items : cap);
+    kernel<<<grid, NTHREADS, smem, st>>>(tq, tk, tv, tdo, lse2, delta, counters, dq_accum,
+                                         static_cast<bf16*>(dk), static_cast<bf16*>(dv), dkv, wk,
+                                         dks, dvs, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ++*launched;
   }
   if (Sq > 0) {
-    cudaError_t err = cudaFuncSetAttribute(R::dq, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           R::dq_smem);
-    if (err != cudaSuccess) return err;
-    R::dq<<<dim3((Sq + R::q_rows - 1) / R::q_rows, Hq, B), R::block(), R::dq_smem, st>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), Hq, Sq, Skv, Hq / Hkv, qs, ks, vs, dos,
-        dqs, scale, causal);
-    err = cudaGetLastError();
+    // dq's tiles, then with split items 256 (dK, dV) column pairs a CTA
+    const long long pairs = ws.split ? (long long)B * Hkv * Skv * (D / 2) : 0;
+    bwd_finish_kernel<DT><<<(unsigned)((long long)B * Hq * nqt + (pairs + 255) / 256), 256, 0,
+                            st>>>(
+        dq_accum, static_cast<bf16*>(dq), B, Hq, Hkv, Sq, Skv, D, nqt, dqs, scale, dkv,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), dks, dvs);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ++*launched;
   }
   return cudaSuccess;
 }
 
+}  // namespace one
+
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const void* o,
-                     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-                     void* dv, int B, int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks,
-                     Strides vs, Strides os, Strides dos, Strides dqs, Strides dks, Strides dvs,
-                     float scale, int causal, cudaStream_t st, int* launched) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, qs, ks,
-                         vs, os, dos, dqs, dks, dvs, scale, causal, st, launched);
-  if (D == 80)
-    return launch<T, 80>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, qs, ks,
-                         vs, os, dos, dqs, dks, dvs, scale, causal, st, launched);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, Hq, Hkv, Sq, Skv, qs, ks,
-                          vs, os, dos, dqs, dks, dvs, scale, causal, st, launched);
+                     const void* dout, const float* lse, void* work, void* dq, void* dk, void* dv,
+                     int B, int Hq, int Hkv, int Sq, int Skv, const Strides (&s)[8], float scale,
+                     int causal, cudaStream_t st, int* launched) {
+  if constexpr (sizeof(T) == 4) {
+    const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
+                *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(o),
+                *fdo = static_cast<const float*>(dout);
+    float *fdq = static_cast<float*>(dq), *fdk = static_cast<float*>(dk),
+          *fdv = static_cast<float*>(dv), *delta = static_cast<float*>(work);
+#define BW_F32(DD)                                                                           \
+  launch_f32<DD>(fq, fk, fv, fo, fdo, lse, delta, fdq, fdk, fdv, B, Hq, Hkv, Sq, Skv, s[0], \
+                 s[1], s[2], s[3], s[4], s[5], s[6], s[7], scale, causal, st, launched)
+    if (D == 64) return BW_F32(64);
+    if (D == 80) return BW_F32(80);
+    if (D == 128) return BW_F32(128);
+#undef BW_F32
+  } else {
+#define BW_TC(DT, DD)                                                                          \
+  one::launch<DT, DD>(q, k, v, o, dout, lse, work, dq, dk, dv, B, Hq, Hkv, Sq, Skv, s[0], s[1], \
+                      s[2], s[3], s[4], s[5], s[6], s[7], scale, causal, st, launched)
+    if (D == 64) return BW_TC(64, 64);
+    if (D == 80) return BW_TC(128, 80);  // the 128-wide tile, zero-filled past D
+    if (D == 128) return BW_TC(128, 128);
+#undef BW_TC
+  }
   return cudaErrorInvalidValue;
 }
-
 }  // namespace bw
 
 bool rows_aligned(const void* p, const Strides& s) {
@@ -1401,14 +1772,31 @@ int flash_attention(const void* q, const void* k, const void* v, void* out, void
   return (int)cudaErrorInvalidValue;
 }
 
+// The bytes of flash_attention_bwd's workspace `work` for these shapes and
+// dtype, written to *bytes: f32 delta (B, Hq, Sq) for f32; for bf16 the
+// one pass's lse2, delta, dQ counters and f32 dQ sums, with GQA also f32
+// dK and dV partials of every query head.
+int flash_attention_bwd_workspace(int dtype, int B, int Hq, int Hkv, int Sq, int Skv, int D,
+                                  long long* bytes) {
+  *bytes = 0;
+  if (B < 0 || Hq < 0 || Hkv <= 0 || Sq < 0 || Skv < 0) return (int)cudaErrorInvalidValue;
+  if (dtype == F32) *bytes = (long long)B * Hq * Sq * 4;
+  else if (dtype == BF16) *bytes = bw::one::workspace(B, Hq, Hkv, Sq, Skv, D).bytes;
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaSuccess;
+}
+
 // The backward of flash_attention: dq (B, Sq, Hq, D), dk and dv (B, Skv, Hkv, D)
 // from q, k, v, the forward's output o and log-sum-exp lse (B, Hq, Sq) f32,
-// and the output's gradient dout; delta (B, Hq, Sq) f32 is scratch.  Every
-// (B, S, H, D) tensor through element strides as flash_attention's.  Up to
-// three launches on the stream: delta = rowsum(dout * o), dK/dV, dQ (each
-// skipped where its grid is empty); *launched is set to how many were made.
+// and the output's gradient dout; `work` is scratch of
+// flash_attention_bwd_workspace bytes, 256-byte aligned.  Every (B, S, H, D)
+// tensor through element strides as flash_attention's.  Up to three
+// launches on the stream (each skipped where its grid is empty), *launched
+// set to how many were made: f32 delta = rowsum(dout * o), dK/dV, dQ; bf16
+// the pre-pass (delta, lse2, zeroed dQ sums and counters), the one pass
+// (dK, dV and the ordered dQ sum), dQ's rounding.
 int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                        const void* dout, const void* lse, void* delta, void* dq, void* dk,
+                        const void* dout, const void* lse, void* work, void* dq, void* dk,
                         void* dv, int dtype, int B, int Hq, int Hkv, int Sq, int Skv, int D,
                         const long long* strides, float scale, int causal, void* stream,
                         int* launched) {
@@ -1420,15 +1808,16 @@ int flash_attention_bwd(const void* q, const void* k, const void* v, const void*
   Strides s[8];
   for (int i = 0; i < 8; ++i) s[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
   if (dtype == F32)
-    return (int)bw::launch_d<float>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv, Sq, Skv,
-                                    s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], scale,
-                                    causal, st, launched);
-  if (dtype == BF16)
-    return (int)bw::launch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, dl, dq, dk, dv, B, Hq, Hkv,
-                                            Sq, Skv, s[0], s[1], s[2], s[3], s[4], s[5], s[6],
-                                            s[7], scale, causal, st, launched);
+    return (int)bw::launch_d<float>(D, q, k, v, o, dout, l, work, dq, dk, dv, B, Hq, Hkv, Sq,
+                                    Skv, s, scale, causal, st, launched);
+  if (dtype == BF16) {
+    if (!(rows_aligned(q, s[0]) && rows_aligned(k, s[1]) && rows_aligned(v, s[2]) &&
+          rows_aligned(dout, s[4])))
+      return (int)cudaErrorMisalignedAddress;
+    return (int)bw::launch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, work, dq, dk, dv, B, Hq, Hkv,
+                                            Sq, Skv, s, scale, causal, st, launched);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,7 +28,8 @@ Training (:class:`FlashAttentionFn`): the forward also writes each row's
 log-sum-exp, and :func:`flash_attention_bwd`, the hand-written backward
 (the JAX package has none: it differentiates its plain attention), reads
 it.  Bound by operations too, 2.5x the forward's (5 products against 2);
-bf16 on the tensor cores (``mma.sync``), f32 on the CUDA cores.
+bf16 in one pass on the tensor cores (``wgmma``, TMA, dQ summed in a fixed
+order), f32 on the CUDA cores.
 """
 
 from __future__ import annotations
@@ -51,7 +52,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                    *([_L] * 12), ctypes.c_float, _I, _P],
                "flash_attention_bwd": [*([_P] * 10), *([_I] * 7), _P, ctypes.c_float, _I, _P,
-                                       _P]}
+                                       _P],
+               "flash_attention_bwd_workspace": [*([_I] * 7), _P]}
 
 
 def rows_aligned(t: torch.Tensor) -> bool:
@@ -167,17 +169,28 @@ def flash_attention_bwd(
     dv)``, new contiguous tensors in q's dtype, from the forward's inputs,
     its output ``out``, its ``lse`` and the output's gradient ``dout``
     (every ``(B, S, H, D)`` tensor read through strides with a contiguous
-    last dim; bf16 rows 16-byte aligned).  FlashAttention-2's algorithm:
-    ``delta = rowsum(dout * out)``; per kv tile of one kv head, over its
-    group's query heads and the query tiles from the causal start, ``P =
-    exp(scale q k^T - lse)``, ``dV += P^T dO``, ``dS = P (dO v^T -
-    delta)``, ``dK += scale dS^T q``; per query tile, ``dQ = scale dS k``
-    over the kv tiles up to the causal end.  bf16 runs the products on the
-    tensor cores (``mma.sync``, f32 sums, P and dS rounded to bf16 as
-    operands); f32 on the CUDA cores in f32.  No atomics: the result is
-    bitwise repeatable.  Adds one to ``_build.LAUNCHES["flash_attention_bwd"]``
-    per kernel launched, as the entry point reports them: the delta
-    pre-pass, dK/dV and dQ, three a call but where a grid is empty."""
+    last dim; bf16 rows 16-byte aligned).  ``delta = rowsum(dout * out)``;
+    per kv tile of one kv head, over its group's query heads and the query
+    tiles from the causal start, ``P = exp(scale q k^T - lse)``, ``dV +=
+    P^T dO``, ``dS = P (dO v^T - delta)``, ``dK += scale dS^T q``, ``dQ +=
+    scale dS k``.
+
+    bf16, FlashAttention-3's one pass on the tensor cores: a pre-pass
+    (delta, lse in the log2 domain, zeroed f32 dQ sums and counters), one
+    kernel of five ``wgmma`` products per tile (a CTA per 128 keys, two
+    consumer warpgroups, TMA loads from a producer warp, P and dS rounded
+    to bf16 as operands) whose dQ partials a second producer warp adds
+    into the f32 sums in ascending kv-tile order, and dQ's rounding to
+    bf16 (with GQA a CTA takes one query head and the same launch sums the
+    group's f32 dK/dV partials in head order).  The fixed orders make the
+    result bitwise repeatable.  f32: three CUDA-core kernels (delta,
+    dK/dV, dQ recomputing S and dP).  The workspace
+    (``flash_attention_bwd_workspace`` bytes: delta for f32; lse2, delta,
+    counters, dQ sums and with GQA the dK/dV partials for bf16) is
+    allocated here.  Adds
+    one to ``_build.LAUNCHES["flash_attention_bwd"]`` per kernel launched,
+    as the entry point reports them: three a call but where a grid is
+    empty (the middle one without keys)."""
     _check_inputs(q, k, v)
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
@@ -196,13 +209,17 @@ def flash_attention_bwd(
     dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    size = ctypes.c_longlong(0)
+    code = lib.flash_attention_bwd_workspace(_DTYPE_CODE[q.dtype], b, hq, hkv, sq, skv, d,
+                                             ctypes.byref(size))
+    _build.check(code, "flash_attention_bwd_workspace")
+    work = torch.empty(max(size.value, 1), dtype=torch.uint8, device=q.device)
     strides = (ctypes.c_longlong * 24)(*_strides(q, k, v, out, dout, dq, dk, dv))
     launched = ctypes.c_int(0)
-    lib = _build.load("flash_attention", _SIGNATURES)
     code = lib.flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), work.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _DTYPE_CODE[q.dtype], b, hq, hkv, sq, skv, d, ctypes.addressof(strides),
         scale, int(causal), _build.stream_ptr(q.device), ctypes.byref(launched),
     )

@@ -14,6 +14,9 @@ the plain version in f32 on the same inputs (``chip_smoke.py``'s
 ``FLASH_REL_TOL``), which the long causal rows' small values cannot hide in.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +32,15 @@ torch.set_num_threads(1)
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=2e-2, atol=2e-2)}
 REL_TOL = 5e-3
+
+
+@functools.cache
+def _jitted(fn, **static):
+    """``fn`` with its keyword arguments fixed, jitted once for the module
+    with XLA's backend optimisation off, which about halves the compile of
+    an interpret-mode kernel here."""
+    return jax.jit(functools.partial(fn, **static),
+                   compiler_options={"xla_backend_optimization_level": 0})
 
 
 def _mk(b, hq, hkv, sq, skv, d, seed=0):
@@ -54,8 +66,8 @@ def _mk(b, hq, hkv, sq, skv, d, seed=0):
 def test_attention_ref_matches_pallas_kernel(dtype, b, hq, hkv, sq, skv, d, bq, bkv, causal):
     q, k, v = _mk(b, hq, hkv, sq, skv, d)
     jd, td = DTYPES[dtype]
-    want = j_flash(jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd), causal=causal,
-                   block_q=bq, block_kv=bkv, interpret=True)
+    want = _jitted(j_flash, causal=causal, block_q=bq, block_kv=bkv, interpret=True)(
+        jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd))
     got = attention_ref(*(torch.from_numpy(t).to(td) for t in (q, k, v)), causal=causal)
     assert got.dtype == td and tuple(got.shape) == (b, hq, sq, d)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[dtype])
@@ -128,8 +140,8 @@ def test_tensor_core_rounding_matches_pallas_kernel(b, hq, hkv, sq, skv, d, bq, 
     """P rounded to bf16 before P.V (the tensor-core route) stays within the
     bf16 tolerance of the Pallas kernel run in bf16."""
     q, k, v = _mk(b, hq, hkv, sq, skv, d, seed=5)
-    want = j_flash(*(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)), causal=causal,
-                   block_q=bq, block_kv=bkv, interpret=True)
+    want = _jitted(j_flash, causal=causal, block_q=bq, block_kv=bkv, interpret=True)(
+        *(jnp.asarray(t, jnp.bfloat16) for t in (q, k, v)))
     got = _tensor_core_emulation(*(torch.from_numpy(t).to(torch.bfloat16) for t in (q, k, v)),
                                  causal=causal)
     assert torch.isfinite(got.float()).all()

@@ -8,9 +8,13 @@ of unit-normal data that bounds the error near 27 * 2^-24 * sum|w*x|
 (about 2e-5), whatever the size of the result after cancellation.  f32:
 ``rtol=1e-5, atol=1e-5`` (the JAX kernel's own test uses the same).
 bf16 output: one bf16 ulp (``rtol=2**-7``) of the rounded result, plus
-``atol=1e-6``.
+``atol=1e-6``.  The Pallas kernel runs jitted once per shape and tile, with
+XLA's backend optimisation off (:func:`_jitted`).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +27,15 @@ torch.set_num_threads(1)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5), "bfloat16": dict(rtol=2.0**-7, atol=1e-6)}
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+@functools.cache
+def _jitted(fn, **static):
+    """``fn`` with its keyword arguments fixed, jitted once for the module
+    with XLA's backend optimisation off, which about halves the compile of
+    an interpret-mode kernel here."""
+    return jax.jit(functools.partial(fn, **static),
+                   compiler_options={"xla_backend_optimization_level": 0})
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -39,7 +52,7 @@ def test_stencil27_ref_matches_pallas_kernel(dtype, shape, tile):
     x = rng.normal(size=tuple(s + 2 for s in shape)).astype(np.float32)
     w = rng.normal(size=(3, 3, 3)).astype(np.float32)
     jd, td = DTYPES[dtype]
-    want = j_stencil27(jnp.asarray(x, jd), jnp.asarray(w), tile=tile, interpret=True)
+    want = _jitted(j_stencil27, tile=tile, interpret=True)(jnp.asarray(x, jd), jnp.asarray(w))
     got = stencil27_ref(torch.from_numpy(x).to(td), torch.from_numpy(w))
     assert got.dtype == td and tuple(got.shape) == shape
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL[dtype])
@@ -87,7 +100,8 @@ def test_stencil_update_into_strided_interior_equals_pallas_kernel(dtype, shape,
     got = stencil_update(torch.from_numpy(xp).to(td), torch.from_numpy(w), out=view)
     assert got.data_ptr() == view.data_ptr()
     for r in range(2):
-        want = j_stencil27(jnp.asarray(xp[r], jd), jnp.asarray(w), tile=tile, interpret=True)
+        want = _jitted(j_stencil27, tile=tile, interpret=True)(jnp.asarray(xp[r], jd),
+                                                                jnp.asarray(w))
         np.testing.assert_allclose(block[r, 1:-1, 1:-1].float().numpy(),
                                    np.asarray(want, np.float32), **TOL[dtype])
     ghosts = block.clone()

@@ -12,8 +12,15 @@ Tolerances, stated, as ``tests/kernels/test_wkv.py``: f32
 other orders; the decays multiply the differences by up to exp(0) = 1), bf16
 ``rtol=atol=5e-2`` (f32 arithmetic on bf16 inputs, the output rounded to
 bf16).
+
+The JAX functions run jitted, once per shape and static arguments
+(:func:`_jitted`): run eagerly, their scans and interpret-mode kernels
+compile again on every call.
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,6 +41,15 @@ SHAPES = [
     (1, 64, 8, 4),  # many chunks
     (3, 48, 32, 16),
 ]
+
+
+@functools.cache
+def _jitted(fn, **static):
+    """``fn`` with its keyword arguments fixed, jitted once for the module
+    (the cases of one shape share one compile) with XLA's backend
+    optimisation off, which about halves a compile here."""
+    return jax.jit(functools.partial(fn, **static),
+                   compiler_options={"xla_backend_optimization_level": 0})
 
 
 def _mk(bh, T, hd, seed=0):
@@ -63,8 +79,8 @@ def test_ref_matches_jax_ref_and_pallas_kernel(bh, T, hd, chunk):
     inputs = _mk(bh, T, hd)
     got = wkv_chunked_ref(*_t(*inputs), chunk=chunk)
     assert got.dtype == torch.float32 and tuple(got.shape) == (bh, T, hd)
-    for want in (j_wkv_chunked_ref(*map(jnp.asarray, inputs), chunk=chunk),
-                 j_wkv_chunked(*map(jnp.asarray, inputs), chunk=chunk, interpret=True)):
+    for want in (_jitted(j_wkv_chunked_ref, chunk=chunk)(*map(jnp.asarray, inputs)),
+                 _jitted(j_wkv_chunked, chunk=chunk, interpret=True)(*map(jnp.asarray, inputs))):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["float32"])
 
 
@@ -73,7 +89,7 @@ def test_model_layout_wkv_matches_pallas_kernel(bh, T, hd, chunk):
     """``ops.wkv`` on the rows as batch entries of one head each, with the
     per-row bonus (B, H, hd), against the Pallas kernel."""
     r, k, v, lw, u = _mk(bh, T, hd, seed=5)
-    want = j_wkv_chunked(*map(jnp.asarray, (r, k, v, lw, u)), chunk=chunk, interpret=True)
+    want = _jitted(j_wkv_chunked, chunk=chunk, interpret=True)(*map(jnp.asarray, (r, k, v, lw, u)))
     y, S = wkv(*(t[:, :, None] for t in _t(r, k, v, lw)), torch.from_numpy(u), chunk=chunk)
     assert tuple(S.shape) == (bh, 1, hd, hd)
     np.testing.assert_allclose(y[:, :, 0].numpy(), np.asarray(want), **TOL["float32"])
@@ -81,7 +97,7 @@ def test_model_layout_wkv_matches_pallas_kernel(bh, T, hd, chunk):
 
 def test_ref_bf16_matches_pallas_kernel():
     inputs = [jnp.asarray(a, jnp.bfloat16) for a in _mk(2, 32, 16, seed=1)]
-    want = j_wkv_chunked(*inputs, chunk=8, interpret=True)
+    want = _jitted(j_wkv_chunked, chunk=8, interpret=True)(*inputs)
     got = wkv_chunked_ref(*_t(*_mk(2, 32, 16, seed=1), dtype=torch.bfloat16), chunk=8)
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), **TOL["bfloat16"])
@@ -92,8 +108,8 @@ def test_model_layout_wrapper_matches_jax():
     wrapper (Pallas kernel, interpret) and the JAX model's ``wkv_scan``."""
     inputs = _mk_model(2, 16, 3, 8)
     got, S = wkv(*_t(*inputs), chunk=8)
-    want_k = j_wkv(*map(jnp.asarray, inputs), chunk=8, force_kernel=True, interpret=True)
-    want_y, want_S = j_wkv_scan(*map(jnp.asarray, inputs), chunk=8)
+    want_k = _jitted(j_wkv, chunk=8, force_kernel=True, interpret=True)(*map(jnp.asarray, inputs))
+    want_y, want_S = _jitted(j_wkv_scan, chunk=8)(*map(jnp.asarray, inputs))
     np.testing.assert_allclose(got.numpy(), np.asarray(want_k), **TOL["float32"])
     np.testing.assert_allclose(got.numpy(), np.asarray(want_y), **TOL["float32"])
     np.testing.assert_allclose(S.numpy(), np.asarray(want_S), **TOL["float32"])
@@ -106,7 +122,7 @@ def test_given_state_and_final_state_match_wkv_scan(T, chunk):
     inputs = _mk_model(2, T, 4, 16, seed=7)
     S0 = np.random.default_rng(8).normal(size=(2, 4, 16, 16)).astype(np.float32)
     got, S = wkv(*_t(*inputs), chunk=chunk, S0=torch.from_numpy(S0))
-    want_y, want_S = j_wkv_scan(*map(jnp.asarray, inputs), jnp.asarray(S0), chunk=chunk)
+    want_y, want_S = _jitted(j_wkv_scan, chunk=chunk)(*map(jnp.asarray, inputs), jnp.asarray(S0))
     np.testing.assert_allclose(got.numpy(), np.asarray(want_y), **TOL["float32"])
     np.testing.assert_allclose(S.numpy(), np.asarray(want_S), **TOL["float32"])
     if T % 2 == 0 and T > 1:
@@ -121,7 +137,7 @@ def test_given_state_and_final_state_match_wkv_scan(T, chunk):
 def test_strong_decay_stable():
     r, k, v, lw, u = _mk(1, 32, 8, seed=3)
     lw = np.full_like(lw, -12.0)
-    want = j_wkv_chunked(*map(jnp.asarray, (r, k, v, lw, u)), chunk=8, interpret=True)
+    want = _jitted(j_wkv_chunked, chunk=8, interpret=True)(*map(jnp.asarray, (r, k, v, lw, u)))
     got = wkv_chunked_ref(*_t(r, k, v, lw, u), chunk=8)
     assert torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL["float32"])
@@ -205,17 +221,14 @@ def _factored_wkv(r, k, v, lw, u, *, chunk, S0=None, sb=16):
     return torch.cat(ys, dim=1), S
 
 
-@pytest.mark.parametrize("decay,with_state", [
-    ("strong", False), ("strong", True), ("weak", False), ("weak", True), ("model", True),
-], ids=["strong-zeros", "strong-S0", "weak-zeros", "weak-S0", "model-S0"])
-@pytest.mark.parametrize("hd", [8, 64])
-@pytest.mark.parametrize("c", [1, 5, 12, 16, 17, 37, 64])
-def test_factored_chunk_arithmetic_matches_pallas_kernel_and_wkv_scan(c, hd, decay, with_state):
-    """The kernel's factored sub-block arithmetic, emulated in float32,
-    against the JAX Pallas kernel (interpret) and the JAX model's
-    ``wkv_scan`` (given state), over two chunks of c: lw at either end of
-    the model's decay clamp, or the model's random decays
-    -exp(N(-1, 0.5))."""
+FACTORED_CASES = [("strong", False), ("strong", True), ("weak", False), ("weak", True),
+                  ("model", True)]
+
+
+def _factored_inputs(c, hd, decay, with_state):
+    """One case's f32 numpy inputs (1, T, 2, hd) over two chunks of c: lw
+    at either end of the model's decay clamp, or the model's random decays
+    -exp(N(-1, 0.5)); S0 (1, 2, hd, hd) or None."""
     H, T = 2, (4 if c == 1 else 2 * c)
     rng = np.random.default_rng(c * 100 + hd)
     r, k, v = (rng.normal(size=(1, T, H, hd)).astype(np.float32) for _ in range(3))
@@ -223,19 +236,56 @@ def test_factored_chunk_arithmetic_matches_pallas_kernel_and_wkv_scan(c, hd, dec
           -np.exp(rng.normal(-1.0, 0.5, size=(1, T, H, hd))).astype(np.float32))
     u = (rng.normal(size=(H, hd)) * 0.3).astype(np.float32)
     S0 = rng.normal(size=(1, H, hd, hd)).astype(np.float32) if with_state else None
+    return r, k, v, lw, u, S0
+
+
+@functools.cache
+def _factored_refs(c, hd):
+    """The JAX references of every case of :data:`FACTORED_CASES` at (c,
+    hd), one compile each: ``wkv_scan`` over the cases' heads side by side
+    (heads are independent; a missing S0 is the zeros JAX's scan starts
+    from) and the Pallas kernel over the zero-state cases' rows stacked.
+    Returns {case: (y (1, T, 2, hd), S (1, 2, hd, hd), y_kernel (2, T, hd)
+    or None)}."""
+    cases = [_factored_inputs(c, hd, *case) for case in FACTORED_CASES]
+    cat = [np.concatenate([x[i] for x in cases], axis=2) for i in range(4)]
+    u = np.concatenate([x[4] for x in cases], axis=0)
+    S0 = np.concatenate([x[5] if x[5] is not None else np.zeros((1, 2, hd, hd), np.float32)
+                         for x in cases], axis=1)
+    y, S = map(np.asarray, _jitted(j_wkv_scan, chunk=c)(*map(jnp.asarray, (*cat, u, S0))))
+    zero = [i for i, (_, with_state) in enumerate(FACTORED_CASES) if not with_state]
+    rows = [np.concatenate([cases[i][j][0].transpose(1, 0, 2) for i in zero]) for j in range(4)]
+    yk = np.asarray(_jitted(j_wkv_chunked, chunk=c, interpret=True)(
+        *map(jnp.asarray, rows), jnp.asarray(np.concatenate([cases[i][4][:, None] for i in zero]))))
+    out = {}
+    for i, case in enumerate(FACTORED_CASES):
+        h = slice(2 * i, 2 * i + 2)
+        out[case] = (y[:, :, h], S[:, h],
+                     yk[2 * zero.index(i):2 * zero.index(i) + 2] if i in zero else None)
+    return out
+
+
+@pytest.mark.parametrize("decay,with_state", FACTORED_CASES,
+                         ids=["strong-zeros", "strong-S0", "weak-zeros", "weak-S0", "model-S0"])
+@pytest.mark.parametrize("hd", [8, 64])
+@pytest.mark.parametrize("c", [1, 5, 12, 16, 17, 37, 64])
+def test_factored_chunk_arithmetic_matches_pallas_kernel_and_wkv_scan(c, hd, decay, with_state):
+    """The kernel's factored sub-block arithmetic, emulated in float32,
+    against the JAX Pallas kernel (interpret) and the JAX model's
+    ``wkv_scan`` (given state), over two chunks of c: lw at either end of
+    the model's decay clamp, or the model's random decays
+    -exp(N(-1, 0.5)).  The JAX side runs the five decay cases of one (c,
+    hd) in one call (:func:`_factored_refs`)."""
+    r, k, v, lw, u, S0 = _factored_inputs(c, hd, decay, with_state)
     rows = [torch.from_numpy(x[0].transpose(1, 0, 2).copy()) for x in (r, k, v, lw)]
     y, S = _factored_wkv(*rows, torch.from_numpy(u), chunk=c,
                          S0=None if S0 is None else torch.from_numpy(S0[0]))
     assert torch.isfinite(y).all() and torch.isfinite(S).all()
-    want_y, want_S = j_wkv_scan(*map(jnp.asarray, (r, k, v, lw, u)),
-                                None if S0 is None else jnp.asarray(S0), chunk=c)
-    np.testing.assert_allclose(y.numpy(), np.asarray(want_y)[0].transpose(1, 0, 2),
-                               **TOL["float32"])
-    np.testing.assert_allclose(S.numpy(), np.asarray(want_S)[0], **TOL["float32"])
+    want_y, want_S, want_k = _factored_refs(c, hd)[decay, with_state]
+    np.testing.assert_allclose(y.numpy(), want_y[0].transpose(1, 0, 2), **TOL["float32"])
+    np.testing.assert_allclose(S.numpy(), want_S[0], **TOL["float32"])
     if S0 is None:
-        want_k = j_wkv_chunked(*(jnp.asarray(x.numpy()) for x in rows),
-                               jnp.asarray(u[:, None]), chunk=c, interpret=True)
-        np.testing.assert_allclose(y.numpy(), np.asarray(want_k), **TOL["float32"])
+        np.testing.assert_allclose(y.numpy(), want_k, **TOL["float32"])
 
 
 @pytest.fixture

@@ -1,7 +1,8 @@
 """Dense transformer of the port against the JAX package, on the CPU.
 
-The same parameters (made by the JAX package's ``init`` and carried over by
-``repro_torch.models.convert``) and the same tokens (numpy, seeded) go
+The same parameters (drawn with numpy in the shapes and dtypes of the JAX
+package's ``init``, at its statistics, by ``test_torch_models_hybrid.
+random_tree``, and carried over by ``repro_torch.models.convert``) and the same tokens (numpy, seeded) go
 through ``repro.models.build_model(cfg)`` and the port's ``build_model(cfg,
 "cpu")``; both take their plain attention on the CPU.
 
@@ -13,9 +14,12 @@ rounded to bf16 (relative step 2^-8 = 3.9e-3) after every product, norm and
 residual add, and the two frameworks round at slightly different places
 (XLA may keep an elementwise chain in f32), so a logit below 1 can move by
 a few bf16 steps over two layers (about 7e-3 seen).
+
+The JAX model's logits, prefill and decode run jitted.
 """
 
 import dataclasses
+import functools
 
 import jax
 import numpy as np
@@ -24,9 +28,14 @@ import torch
 
 from repro.configs import get_config as j_get_config
 from repro.models import build_model as j_build_model
+from test_torch_models_hybrid import random_tree
 from repro_torch.configs import get_config, ModelConfig
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax, params_to_numpy
+
+#: ``jax.jit`` with XLA's backend optimisation off, which about halves the
+#: compile of a JAX reference here
+_jitr = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 torch.set_num_threads(1)
 
@@ -68,15 +77,20 @@ def _cfgs(name: str, dtype: str):
             j_get_config(name).reduced().with_updates(**upd))
 
 
-def _numpy_tree(params):
-    return jax.tree.map(np.asarray, params)
+@functools.cache
+def _jax_tree(name: str, dtype: str, seed: int) -> dict:
+    """A numpy tree of the JAX model's parameters (:func:`random_tree`,
+    nothing compiled), each leaf in the dtype JAX's ``init`` gives it."""
+    init = j_build_model(_cfgs(name, dtype)[1]).init
+    return jax.tree.map(lambda a, s: a.astype(s.dtype), random_tree(init, seed),
+                        jax.eval_shape(init, jax.random.key(0)))
 
 
 @pytest.mark.parametrize("name,dtype", [("llama3-8b", "bfloat16"), ("stablelm-1.6b", "float32"),
                                         ("qwen2.5-14b", "float32"), ("granite-8b", "bfloat16")])
 def test_params_round_trip(name, dtype):
-    cfg, jcfg = _cfgs(name, dtype)
-    tree = _numpy_tree(j_build_model(jcfg).init(jax.random.key(1)))
+    cfg, _ = _cfgs(name, dtype)
+    tree = _jax_tree(name, dtype, 1)
     params = params_from_jax(cfg, tree, "cpu")
     assert len(params["layers"]) == cfg.n_layers
     wq = params["layers"][1]["attn"]["wq"]
@@ -96,11 +110,16 @@ def case(request):
     name, dtype = CASES[request.param]
     cfg, jcfg = _cfgs(name, dtype)
     jm = j_build_model(jcfg)
-    jp = jm.init(jax.random.key(0))
+    tree = _jax_tree(name, dtype, 0)
+    jp = jax.tree.map(jax.numpy.asarray, tree)
     tm = build_model(cfg, "cpu")
-    tp = params_from_jax(cfg, _numpy_tree(jp), "cpu")
+    tp = params_from_jax(cfg, tree, "cpu")
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(2, 12)).astype(np.int32)
-    return dict(cfg=cfg, jm=jm, jp=jp, tm=tm, tp=tp, tokens=tokens, tol=TOL[dtype])
+    return dict(cfg=cfg, jm=jm, jp=jp, tm=tm, tp=tp, tokens=tokens, tol=TOL[dtype],
+                jlogits=_jitr(lambda p, t: jm.logits(p, {"tokens": t})),
+                jprefill=_jitr(lambda p, t, c, n=None: jm.prefill(p, {"tokens": t}, c,
+                                                                    true_len=n)),
+                jdecode=_jitr(jm.decode_step))
 
 
 def _close(got, want, tol):
@@ -109,7 +128,7 @@ def _close(got, want, tol):
 
 
 def test_logits_match_jax(case):
-    want = case["jm"].logits(case["jp"], {"tokens": case["tokens"]})
+    want = case["jlogits"](case["jp"], case["tokens"])
     got = case["tm"].logits(case["tp"], {"tokens": torch.from_numpy(case["tokens"])})
     assert tuple(got.shape) == want.shape
     _close(got, want, case["tol"])
@@ -117,7 +136,7 @@ def test_logits_match_jax(case):
 
 def test_prefill_exact_matches_jax(case):
     toks = case["tokens"]
-    want, wcache = case["jm"].prefill(case["jp"], {"tokens": toks}, case["jm"].init_cache(2, 16))
+    want, wcache = case["jprefill"](case["jp"], toks, case["jm"].init_cache(2, 16))
     got, gcache = case["tm"].prefill(case["tp"], {"tokens": torch.from_numpy(toks)},
                                      case["tm"].init_cache(2, 16))
     _close(got, want, case["tol"])
@@ -130,8 +149,7 @@ def test_prefill_bucketed_matches_jax_and_exact(case):
     toks = case["tokens"][:1]
     padded = np.pad(toks, ((0, 0), (0, 4)))
     true_len = np.full((1,), toks.shape[1], np.int32)
-    want, wcache = case["jm"].prefill(case["jp"], {"tokens": padded}, case["jm"].init_cache(1, 16),
-                                      true_len=true_len)
+    want, wcache = case["jprefill"](case["jp"], padded, case["jm"].init_cache(1, 16), true_len)
     tm, tp = case["tm"], case["tp"]
     got, gcache = tm.prefill(tp, {"tokens": torch.from_numpy(padded)}, tm.init_cache(1, 16),
                              true_len=torch.from_numpy(true_len))
@@ -145,11 +163,11 @@ def test_prefill_bucketed_matches_jax_and_exact(case):
 def test_decode_steps_match_jax(case):
     toks = case["tokens"]
     jm, tm = case["jm"], case["tm"]
-    _, wcache = jm.prefill(case["jp"], {"tokens": toks}, jm.init_cache(2, 16))
+    _, wcache = case["jprefill"](case["jp"], toks, jm.init_cache(2, 16))
     _, gcache = tm.prefill(case["tp"], {"tokens": torch.from_numpy(toks)}, tm.init_cache(2, 16))
     nxt = np.array([[3], [7]], np.int32)
     for _ in range(2):
-        want, wcache = jm.decode_step(case["jp"], nxt, wcache)
+        want, wcache = case["jdecode"](case["jp"], nxt, wcache)
         got, gcache = tm.decode_step(case["tp"], torch.from_numpy(nxt), gcache)
         assert tuple(got.shape) == want.shape == (2, 1, case["cfg"].vocab_size)
         _close(got, want, case["tol"])
@@ -200,7 +218,8 @@ def test_nonzero_qkv_biases_match_jax(name):
     in f32, at the f32 tolerance ``rtol=atol=1e-4`` (module docstring)."""
     cfg, jcfg = _cfgs(name, "float32")
     jm, tm = j_build_model(jcfg), build_model(cfg, "cpu")
-    tree = _numpy_tree(jm.init(jax.random.key(3)))
+    tree = dict(_jax_tree(name, "float32", 3))
+    tree["layers"] = dict(tree["layers"], attn=dict(tree["layers"]["attn"]))  # a copy to edit
     rng = np.random.default_rng(4)
     attn = tree["layers"]["attn"]
     biases = ("bq", "bk", "bv")
@@ -217,14 +236,15 @@ def test_nonzero_qkv_biases_match_jax(name):
     tol = TOL["float32"]
     toks = rng.integers(0, cfg.vocab_size, size=(2, 12)).astype(np.int32)
     _close(tm.logits(tp, {"tokens": torch.from_numpy(toks)}),
-           jm.logits(jp, {"tokens": toks}), tol)
-    want, wcache = jm.prefill(jp, {"tokens": toks}, jm.init_cache(2, 16))
+           _jitr(lambda p, t: jm.logits(p, {"tokens": t}))(jp, toks), tol)
+    want, wcache = _jitr(lambda p, t, c: jm.prefill(p, {"tokens": t}, c))(
+        jp, toks, jm.init_cache(2, 16))
     got, gcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, tm.init_cache(2, 16))
     _close(got, want, tol)
     for k in ("k", "v"):
         _close(gcache[k], wcache[k], tol)
     nxt = np.asarray(want, np.float32)[:, 0].argmax(-1).astype(np.int32)[:, None]
-    want, wcache = jm.decode_step(jp, nxt, wcache)
+    want, wcache = _jitr(jm.decode_step)(jp, nxt, wcache)
     got, gcache = tm.decode_step(tp, torch.from_numpy(nxt), gcache)
     _close(got, want, tol)
     for k in ("k", "v"):

@@ -32,6 +32,8 @@ caches ``rtol=atol=1e-4``, the port's model tolerance against JAX
 (``tests/test_torch_models.py``).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +54,10 @@ from repro_torch.models import build_model
 from repro_torch.models import ssm as t_ssm
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.parallel.context import ParallelContext
+
+#: ``jax.jit`` with XLA's backend optimisation off, which about halves the
+#: compile of a JAX reference here
+_jitr = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 torch.set_num_threads(1)
 
@@ -146,7 +152,7 @@ def jax_halos():
                                                   n_parts=n, packer=p)
                 for n in (1, 3) for p in ("slice", "bf16")}
 
-    out = jax.jit(j_compat.shard_map(inner, mesh=mesh, in_specs=spec, out_specs=spec))(
+    out = _jitr(j_compat.shard_map(inner, mesh=mesh, in_specs=spec, out_specs=spec))(
         jnp.asarray(x))
     return x, {k: np.asarray(v) for k, v in out.items()}
 
@@ -196,7 +202,7 @@ def _ssd_inputs(T: int, seed: int, bsz: int = 2, nh: int = 4, hd: int = 8, ns: i
 def test_ssd_scan_matches_jax(T, with_state):
     xh, Bm, Cm, dt, la, h0 = _ssd_inputs(T, seed=T)
     h0 = h0 if with_state else None
-    want_y, want_h = jax.jit(j_ssm.ssd_scan)(xh, Bm, Cm, dt, la, h0)
+    want_y, want_h = _jitr(j_ssm.ssd_scan)(xh, Bm, Cm, dt, la, h0)
     got_y, got_h = t_ssm.ssd_scan(*(torch.from_numpy(a) for a in (xh, Bm, Cm, dt, la)),
                                   None if h0 is None else torch.from_numpy(h0))
     np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), **TOL)
@@ -220,7 +226,7 @@ def test_causal_conv_matches_jax(with_left):
           "conv_b": rng.normal(size=(ch,)).astype(np.float32)}
     x = rng.normal(size=(2, 10, ch)).astype(np.float32)
     left = rng.normal(size=(2, cfg.conv_kernel - 1, ch)).astype(np.float32) if with_left else None
-    want = jax.jit(lambda p, a, b: j_ssm.causal_conv(jcfg, p, a, b))(lp, x, left)
+    want = _jitr(lambda p, a, b: j_ssm.causal_conv(jcfg, p, a, b))(lp, x, left)
     got = t_ssm.causal_conv(cfg, {k: torch.from_numpy(v) for k, v in lp.items()},
                             torch.from_numpy(x), None if left is None else torch.from_numpy(left))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
@@ -243,7 +249,7 @@ def jax_blocks(hybrid):
     out = {}
     for name, kw in BLOCK_CELLS.items():
         jctx = JCtx() if kw is None else contexts(**kw)[0]
-        out[name] = np.asarray(jax.jit(
+        out[name] = np.asarray(_jitr(
             lambda p, a, c=jctx: j_ssm.mamba_block(jcfg, p, a, ctx=c))(lp, x))
     return x, out
 
@@ -312,7 +318,7 @@ def test_layout_and_params_round_trip(hybrid):
 def test_logits_match_jax(hybrid):
     cfg, jm, jp, tm, tp, tree = hybrid
     tokens = _tokens(cfg, 2, 64, seed=1)
-    want = jax.jit(lambda p, t: jm.logits(p, {"tokens": t}))(jp, tokens)
+    want = _jitr(lambda p, t: jm.logits(p, {"tokens": t}))(jp, tokens)
     got = tm.logits(tp, {"tokens": torch.from_numpy(tokens).long()})
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
 
@@ -324,8 +330,8 @@ def test_prefill_then_decode_match_jax(hybrid):
     s = 64
     tokens = _tokens(cfg, 2, s, seed=s)
     steps = _tokens(cfg, 2, 3, seed=s + 1)
-    jprefill = jax.jit(lambda p, t, c: jm.prefill(p, {"tokens": t}, c))
-    jdecode = jax.jit(jm.decode_step)
+    jprefill = _jitr(lambda p, t, c: jm.prefill(p, {"tokens": t}, c))
+    jdecode = _jitr(jm.decode_step)
     want, jcache = jprefill(jp, tokens, jm.init_cache(2, 96))
     got, cache = tm.prefill(tp, {"tokens": torch.from_numpy(tokens).long()}, tm.init_cache(2, 96))
     for i in range(steps.shape[1] + 1):
@@ -350,7 +356,7 @@ def test_sequence_parallel_logits_and_prefill_match_jax(hybrid):
     def both(p, t, c):
         return jm.logits(p, {"tokens": t}, ctx=jctx), jm.prefill(p, {"tokens": t}, c, ctx=jctx)
 
-    want_logits, (want_last, jcache) = jax.jit(both)(jp, tokens, jm.init_cache(2, 64))
+    want_logits, (want_last, jcache) = _jitr(both)(jp, tokens, jm.init_cache(2, 64))
     tt = torch.from_numpy(tokens).long()
     np.testing.assert_allclose(tm.logits(tp, {"tokens": tt}, ctx=ctx).numpy(),
                                np.asarray(want_logits), **MODEL_TOL)

@@ -26,6 +26,7 @@ equal ``n_parts``: the exchange moves data only.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,10 @@ from repro_torch.models import build_model
 from repro_torch.models import moe as t_moe
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.parallel.context import ParallelContext
+
+#: ``jax.jit`` with XLA's backend optimisation off, which about halves the
+#: compile of a JAX reference here
+_jitr = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 torch.set_num_threads(1)
 
@@ -77,7 +82,7 @@ def ffn(request):
 
 def _jit(fn, *args):
     """``fn(*args)`` compiled once (eager JAX compiles every op)."""
-    return jax.jit(fn)(*args)
+    return _jitr(fn)(*args)
 
 
 def _random_tree(init, seed: int) -> dict:
@@ -287,7 +292,7 @@ def ep_jax(ffn):
         for n_parts in (1, 2):
             ctx = JCtx(mesh=mesh, moe_mode="ep", n_parts=n_parts, moe_comm=comm)
             with j_compat.set_mesh(mesh):
-                y, aux = jax.jit(lambda pp, xx, c=ctx: j_moe.apply_moe_ffn(jcfg, pp, xx, c))(
+                y, aux = _jitr(lambda pp, xx, c=ctx: j_moe.apply_moe_ffn(jcfg, pp, xx, c))(
                     jax.tree.map(jnp.asarray, p), jnp.asarray(x))
             out[comm, n_parts] = (np.asarray(y), float(aux))
     return cfg, p, x, out
@@ -338,7 +343,7 @@ def test_grouped_psum_matches_jax(groups):
     mesh = _jmesh()
     x = np.random.default_rng(11).integers(-50, 50, size=(8, 3, 5)).astype(np.float32)
     with j_compat.set_mesh(mesh):
-        want = jax.jit(j_compat.shard_map(
+        want = _jitr(j_compat.shard_map(
             lambda xl: jax.lax.psum(xl, "model", axis_index_groups=groups), mesh=mesh,
             in_specs=P(("data", "model")), out_specs=P(("data", "model"))))(jnp.asarray(x))
     got = partitioned_psum(torch.from_numpy(x).reshape(8, 1, 3, 5),
@@ -371,7 +376,7 @@ def test_ep_refuses_a_model_axis_that_is_not_the_slot_count():
     x = jnp.asarray(_x(cfg, (4, 32), seed=13))
     mesh = _jmesh((4, 2))
     with j_compat.set_mesh(mesh):
-        y_ep, _ = jax.jit(lambda pp, xx: j_moe.apply_moe_ffn(
+        y_ep, _ = _jitr(lambda pp, xx: j_moe.apply_moe_ffn(
             jcfg, pp, xx, JCtx(mesh=mesh, moe_mode="ep")))(p, x)
     y_local, _ = _jit(lambda pp, xx: j_moe.apply_moe_ffn(jcfg, pp, xx, JCtx()), p, x)
     rel = np.linalg.norm(np.asarray(y_ep) - np.asarray(y_local)) / np.linalg.norm(y_local)
@@ -412,8 +417,8 @@ def test_logits_match_jax(phi_model):
 def test_prefill_and_decode_steps_match_jax(phi_model):
     cfg, jm, jp, tm, tp = phi_model
     toks = np.random.default_rng(16).integers(0, cfg.vocab_size, size=(1, 12)).astype(np.int32)
-    j_prefill = jax.jit(lambda p, t, c: jm.prefill(p, {"tokens": t}, c))
-    j_decode = jax.jit(jm.decode_step)
+    j_prefill = _jitr(lambda p, t, c: jm.prefill(p, {"tokens": t}, c))
+    j_decode = _jitr(jm.decode_step)
     wl, wc = j_prefill(jp, jnp.asarray(toks), jm.init_cache(1, 32))
     gl, gc = tm.prefill(tp, {"tokens": torch.from_numpy(toks).long()}, tm.init_cache(1, 32))
     np.testing.assert_allclose(gl.numpy(), np.asarray(wl), **LOGIT_TOL)

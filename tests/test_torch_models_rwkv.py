@@ -1,8 +1,9 @@
 """RWKV-6 model of the port against the JAX package, on the CPU.
 
-The same parameters (made by the JAX package's ``init``, with ``w_lora_b``
-set to nonzero numpy values so that the decay LoRA path counts, and carried
-over by ``repro_torch.models.convert``) and the same tokens (numpy, seeded)
+The same parameters (drawn with numpy in the shapes and dtypes of the JAX
+package's ``init`` and at its statistics, so nothing compiles for them,
+with ``w_lora_b`` nonzero so that the decay LoRA path counts; carried over
+by ``repro_torch.models.convert``) and the same tokens (numpy, seeded)
 go through ``repro.models.build_model(cfg)`` and the port's
 ``build_model(cfg, "cpu")``, whose scan takes the plain WKV on the CPU.
 Prompt lengths 12, 64 and 128 with the config's chunk of 64: one short
@@ -19,9 +20,13 @@ carries agree to a bf16 step: the second layer's carries are normed
 activations of magnitude 2-7, where one bf16 step is 0.016-0.03, and after
 the first layer's residual stream they differ by 1-3 steps (the f32 case
 holds every layer's carries to 1e-4).
+
+The JAX model's logits, prefill and decode run jitted (once per config and
+shape; eagerly, its layer scan compiles again on every call).
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -58,19 +63,46 @@ def _cfgs(dtype: str):
             j_get_config(NAME).reduced().with_updates(**upd))
 
 
-def _jax_tree(jcfg, seed: int) -> dict:
-    """The JAX package's parameters as numpy, with a nonzero ``w_lora_b``."""
-    tree = jax.tree.map(np.asarray, j_build_model(jcfg).init(jax.random.key(seed)))
-    lb = tree["layers"]["w_lora_b"]
-    tree["layers"]["w_lora_b"] = (np.random.default_rng(seed).normal(size=lb.shape)
-                                  * 0.5).astype(lb.dtype)
-    return tree
+def _jit(fn):
+    """``jax.jit`` with XLA's backend optimisation off, which about halves
+    a compile here."""
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0})
+
+
+@functools.cache
+def random_rwkv_tree(jcfg, seed: int) -> dict:
+    """A numpy tree of the JAX model's parameters at the statistics of its
+    ``init`` (``models/rwkv.py`` ``layer_params``: mixes uniform in [0.25,
+    0.75], ``w_base`` normal 0.5 about -1, ``u`` normal 0.1, matrices normal
+    over the root of their fan-in, embeddings normal 0.02, norms one and
+    zero), with ``w_lora_b`` normal 0.5 instead of zeros; each leaf in the
+    shape and dtype ``init`` gives it (``eval_shape``, nothing compiled)."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, a):
+        name = jax.tree_util.keystr(path[-1:])[2:-2]
+        if name in ("scale", "bias"):
+            x = np.full(a.shape, 1.0 if name == "scale" else 0.0)
+        elif name in ("mu", "mu_c"):
+            x = rng.uniform(size=a.shape) * 0.5 + 0.25
+        elif name == "w_base":
+            x = rng.normal(size=a.shape) * 0.5 - 1.0
+        elif name in ("u", "w_lora_b"):
+            x = rng.normal(size=a.shape) * (0.1 if name == "u" else 0.5)
+        elif name in ("embed", "lm_head"):
+            x = rng.normal(size=a.shape) * 0.02
+        else:  # an (in, out) matrix, stacked over the layers
+            x = rng.normal(size=a.shape) / np.sqrt(a.shape[-2])
+        return x.astype(np.float32).astype(a.dtype)
+
+    init = j_build_model(jcfg).init
+    return jax.tree_util.tree_map_with_path(leaf, jax.eval_shape(init, jax.random.key(0)))
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_params_round_trip(dtype):
     cfg, jcfg = _cfgs(dtype)
-    tree = _jax_tree(jcfg, 1)
+    tree = random_rwkv_tree(jcfg, 0)  # the tree the model cases below share
     params = params_from_jax(cfg, tree, "cpu")
     assert len(params["layers"]) == cfg.n_layers
     lp, d = params["layers"][1], cfg.d_model
@@ -92,8 +124,12 @@ def test_params_round_trip(dtype):
 def case(request):
     dtype = request.param
     cfg, jcfg = _cfgs(dtype)
-    tree = _jax_tree(jcfg, 0)
-    return dict(cfg=cfg, jm=j_build_model(jcfg), jp=jax.tree.map(jnp.asarray, tree),
+    tree = random_rwkv_tree(jcfg, 0)
+    jm = j_build_model(jcfg)
+    return dict(cfg=cfg, jm=jm, jp=jax.tree.map(jnp.asarray, tree),
+                jlogits=_jit(lambda p, t: jm.logits(p, {"tokens": t})),
+                jprefill=_jit(lambda p, t, c: jm.prefill(p, {"tokens": t}, c)),
+                jdecode=_jit(jm.decode_step),
                 tm=build_model(cfg, "cpu"), tp=params_from_jax(cfg, tree, "cpu"),
                 tol=TOL[dtype])
 
@@ -117,7 +153,7 @@ def _tokens(cfg, length: int) -> np.ndarray:
 @pytest.mark.parametrize("length", [12, 64, 128])
 def test_logits_match_jax(case, length):
     toks = _tokens(case["cfg"], length)
-    want = case["jm"].logits(case["jp"], {"tokens": toks})
+    want = case["jlogits"](case["jp"], toks)
     got = case["tm"].logits(case["tp"], {"tokens": torch.from_numpy(toks)})
     assert tuple(got.shape) == want.shape == (2, length, case["cfg"].vocab_size)
     _close(got, want, case["tol"])
@@ -129,7 +165,7 @@ def test_prefill_and_decode_steps_match_jax(case, length):
     then three decode steps fed the JAX model's own greedy tokens."""
     toks = _tokens(case["cfg"], length)
     jm, tm = case["jm"], case["tm"]
-    want, wcache = jm.prefill(case["jp"], {"tokens": toks}, jm.init_cache(2, 16))
+    want, wcache = case["jprefill"](case["jp"], toks, jm.init_cache(2, 16))
     cache0 = tm.init_cache(2, 16)
     got, gcache = tm.prefill(case["tp"], {"tokens": torch.from_numpy(toks)}, cache0)
     assert tuple(got.shape) == want.shape == (2, 1, case["cfg"].vocab_size)
@@ -142,7 +178,7 @@ def test_prefill_and_decode_steps_match_jax(case, length):
     assert gcache["pos"].tolist() == np.asarray(wcache["pos"]).tolist() == [length, length]
     nxt = np.asarray(want, np.float32)[:, 0].argmax(-1).astype(np.int32)[:, None]
     for _ in range(3):
-        want, wcache = jm.decode_step(case["jp"], nxt, wcache)
+        want, wcache = case["jdecode"](case["jp"], nxt, wcache)
         got, gcache = tm.decode_step(case["tp"], torch.from_numpy(nxt), gcache)
         assert tuple(got.shape) == want.shape == (2, 1, case["cfg"].vocab_size)
         _close(got, want, case["tol"])
@@ -172,7 +208,8 @@ def test_length_100_raises_in_both_packages():
     toks = _tokens(cfg, 100)
     jm = j_build_model(jcfg)
     with pytest.raises(AssertionError):
-        jm.prefill(jm.init(jax.random.key(0)), {"tokens": toks}, jm.init_cache(2, 16))
+        jm.prefill(jax.tree.map(jnp.asarray, random_rwkv_tree(jcfg, 0)), {"tokens": toks},
+                   jm.init_cache(2, 16))
     tm = build_model(cfg, "cpu")
     with pytest.raises(ValueError, match="multiple of the chunk"):
         tm.prefill(tm.init(0), {"tokens": torch.from_numpy(toks)}, tm.init_cache(2, 16))

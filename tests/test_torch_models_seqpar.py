@@ -2,9 +2,12 @@
 package's, on the CPU.
 
 Reduced llama3-8b (2 layers, width 64, GQA 4/2 heads) and reduced
-rwkv6-1.6b (2 layers, width 64, heads of 16), in f32, with the JAX
-package's ``init`` carried over by ``repro_torch.models.convert`` (the
-RWKV decay LoRA made nonzero).  Both packages run under the same context
+rwkv6-1.6b (2 layers, width 64, heads of 16), in f32, with parameters
+carried over by ``repro_torch.models.convert``, drawn with numpy at the
+JAX init's statistics so that nothing compiles for them
+(``test_torch_models_hybrid.random_tree`` for the dense model,
+``test_torch_models_rwkv.random_rwkv_tree`` for RWKV, its decay LoRA
+nonzero).  Both packages run under the same context
 on a ``(1, 4)`` mesh over ``("data", "model")``: JAX's ``shard_map`` on 4
 virtual CPU devices (jitted), the port's ``VirtualMesh`` of 4 stacked
 ranks.  Cells: the dense logits with ``seq_parallel`` (ring attention,
@@ -29,6 +32,8 @@ the ring matmuls sum in another order than XLA, a few f32 ulps.  The
 tolerance, ``3e-4``.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +46,8 @@ from repro.models import build_model as j_build_model
 from repro.models import rwkv as j_rwkv
 from repro.parallel.context import ParallelContext as JCtx
 from repro.serving.engine import ServingEngine as JEngine
+from test_torch_models_hybrid import random_tree
+from test_torch_models_rwkv import random_rwkv_tree
 from repro_torch.configs import get_config
 from repro_torch.core.mesh import make_mesh
 from repro_torch.models import build_model
@@ -48,6 +55,10 @@ from repro_torch.models import rwkv as t_rwkv
 from repro_torch.models.convert import params_from_jax
 from repro_torch.parallel.context import ParallelContext
 from repro_torch.serving.engine import ServingEngine
+
+#: ``jax.jit`` with XLA's backend optimisation off, which about halves the
+#: compile of a JAX reference here
+_jitr = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 torch.set_num_threads(1)
 
@@ -72,11 +83,7 @@ def _models(name: str, seed: int):
     cfg = get_config(name).reduced().with_updates(**F32)
     jcfg = j_get_config(name).reduced().with_updates(**F32)
     jm = j_build_model(jcfg)
-    tree = jax.tree.map(np.asarray, jm.init(jax.random.key(seed)))
-    if cfg.family == "rwkv":
-        lb = tree["layers"]["w_lora_b"]
-        tree["layers"]["w_lora_b"] = (np.random.default_rng(seed).normal(size=lb.shape)
-                                      * 0.5).astype(lb.dtype)
+    tree = random_rwkv_tree(jcfg, seed) if cfg.family == "rwkv" else random_tree(jm.init, seed)
     tm = build_model(cfg, "cpu")
     return cfg, jm, jax.tree.map(jnp.asarray, tree), tm, params_from_jax(cfg, tree, "cpu")
 
@@ -98,7 +105,7 @@ def _tokens(cfg, b=2, s=16, seed=0):
 def _logits_both(models, tokens, **ctx_kw):
     cfg, jm, jp, tm, tp = models
     jctx, tctx = _contexts(**ctx_kw)
-    want = jax.jit(lambda p, t: jm.logits(p, {"tokens": t}, ctx=jctx))(jp, jnp.asarray(tokens))
+    want = _jitr(lambda p, t: jm.logits(p, {"tokens": t}, ctx=jctx))(jp, jnp.asarray(tokens))
     got = tm.logits(tp, {"tokens": torch.from_numpy(tokens).long()}, ctx=tctx)
     return got, np.asarray(want)
 
@@ -133,7 +140,7 @@ def test_dense_bucketed_prefill_matches_jax(dense):
     jctx, tctx = _contexts(seq_parallel=True, n_parts=3)
     toks = _tokens(cfg, b=1, s=16, seed=2)
     true_len = np.array([11], np.int32)
-    want, wcache = jax.jit(lambda p, t, c, n: jm.prefill(p, {"tokens": t}, c, ctx=jctx,
+    want, wcache = _jitr(lambda p, t, c, n: jm.prefill(p, {"tokens": t}, c, ctx=jctx,
                                                          true_len=n))(
         jp, jnp.asarray(toks), jm.init_cache(1, 32), jnp.asarray(true_len))
     got, gcache = tm.prefill(tp, {"tokens": torch.from_numpy(toks).long()}, tm.init_cache(1, 32),
@@ -176,7 +183,7 @@ def test_rwkv_quirk_sequence_parallel_time_mix_returns_no_state(rwkv):
     jctx, tctx = _contexts(seq_parallel=True)
     x = np.random.default_rng(6).normal(size=(1, 8, cfg.d_model)).astype(np.float32)
     jlp = jax.tree.map(lambda a: a[0], jp["layers"])
-    jout = jax.jit(lambda lp, h: j_rwkv.time_mix(jm.cfg, lp, h, ctx=jctx, return_state=True))(
+    jout = _jitr(lambda lp, h: j_rwkv.time_mix(jm.cfg, lp, h, ctx=jctx, return_state=True))(
         jlp, jnp.asarray(x))
     tout = t_rwkv.time_mix(cfg, tp["layers"][0], torch.from_numpy(x), ctx=tctx,
                            return_state=True)

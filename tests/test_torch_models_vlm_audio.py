@@ -16,6 +16,8 @@ cross-attention call and ``blockwise_attention`` ``rtol=atol=1e-5`` (f32,
 the same products summed in other orders).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,10 @@ from repro_torch.models import build_model
 from repro_torch.models import layers as t_layers
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from test_torch_models_hybrid import random_tree
+
+#: ``jax.jit`` with XLA's backend optimisation off, which about halves the
+#: compile of a JAX reference here
+_jitr = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 torch.set_num_threads(1)
 
@@ -99,7 +105,7 @@ def test_bf16_trees_round_trip_exactly(vlm):
 def test_vlm_logits_match_jax_and_the_cross_layers_count(vlm):
     cfg, jm, jp, tm, tp, tree = vlm
     jb, tb = _batch(cfg, 2, 12, seed=2)
-    want = np.asarray(jax.jit(lambda p, b: jm.logits(p, b))(jp, jb))
+    want = np.asarray(_jitr(lambda p, b: jm.logits(p, b))(jp, jb))
     got = tm.logits(tp, tb)
     np.testing.assert_allclose(got.numpy(), want, **MODEL_TOL)
     # another image moves the logits: the cross layers are not the identity
@@ -111,9 +117,9 @@ def test_vlm_prefill_then_decode_match_jax(vlm):
     cfg, jm, jp, tm, tp, tree = vlm
     jb, tb = _batch(cfg, 2, 12, seed=3)
     steps = np.random.default_rng(4).integers(0, cfg.vocab_size, size=(2, 3)).astype(np.int32)
-    want, jcache = jax.jit(lambda p, b, c: jm.prefill(p, b, c))(jp, jb, jm.init_cache(2, 32))
+    want, jcache = _jitr(lambda p, b, c: jm.prefill(p, b, c))(jp, jb, jm.init_cache(2, 32))
     got, cache = tm.prefill(tp, tb, tm.init_cache(2, 32))
-    jdecode = jax.jit(jm.decode_step)
+    jdecode = _jitr(jm.decode_step)
     for i in range(steps.shape[1] + 1):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
         for key in jcache:
@@ -137,7 +143,7 @@ def test_cross_attention_matches_jax(vlm):
     x = rng.normal(size=(2, 5, cfg.d_model)).astype(np.float32)
     feats = rng.normal(size=(2, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
     jcfg = jm.cfg
-    want = jax.jit(lambda p, a, f: j_layers.cross_attention(jcfg, p, a, f))(
+    want = _jitr(lambda p, a, f: j_layers.cross_attention(jcfg, p, a, f))(
         jax.tree.map(lambda a: a[0], jp["cross"]["xattn"]), x, feats)
     got = t_layers.cross_attention(cfg, tp["cross"][0]["xattn"], torch.from_numpy(x),
                                    torch.from_numpy(feats))
@@ -147,7 +153,7 @@ def test_cross_attention_matches_jax(vlm):
 def test_encode_matches_jax(audio):
     cfg, jm, jp, tm, tp, tree = audio
     jb, tb = _batch(cfg, 2, 24, seed=5)
-    want = jax.jit(lambda p, b: jm.logits(p, b))(jp, jb)
+    want = _jitr(lambda p, b: jm.logits(p, b))(jp, jb)
     got = tm.logits(tp, tb)
     assert got.shape == (2, 24, cfg.vocab_size)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
@@ -160,7 +166,7 @@ def test_masked_frames_take_the_mask_embedding(audio):
 
     jb, tb = _batch(cfg, 2, 16, seed=7)
     mask = (np.random.default_rng(8).uniform(size=(2, 16)) < 0.3).astype(np.float32)
-    want = jax.jit(lambda p, f, m: j_encoder.hidden_states(jm.cfg, p, f, m))(
+    want = _jitr(lambda p, f, m: j_encoder.hidden_states(jm.cfg, p, f, m))(
         jp, jb["frames"], mask)
     got = t_encoder.hidden_states(cfg, tp, tb["frames"], torch.from_numpy(mask))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
@@ -180,7 +186,7 @@ def test_blockwise_attention_matches_jax_with_small_blocks(causal):
     rng = np.random.default_rng(9)
     q = rng.normal(size=(1, 256, 4, 16)).astype(np.float32)
     k, v = (rng.normal(size=(1, 384, 2, 16)).astype(np.float32) for _ in range(2))
-    want = jax.jit(lambda a, b, c: j_layers.blockwise_attention(
+    want = _jitr(lambda a, b, c: j_layers.blockwise_attention(
         a, b, c, causal=causal, q_block=128, kv_block=128))(q, k, v)
     got = t_layers.blockwise_attention(*(torch.from_numpy(t) for t in (q, k, v)), causal=causal,
                                        q_block=128, kv_block=128)

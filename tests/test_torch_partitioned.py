@@ -18,6 +18,8 @@ PyTorch sum the products of a 5-long dot and the 4 ranks' terms in other
 orders, a few f32 ulps of values of order 1-10).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,10 @@ from repro.core import compat as j_compat
 from repro.core import partitioned as j_part
 from repro_torch.core import partitioned as t_part
 from repro_torch.core.mesh import make_mesh
+
+#: ``jax.jit`` with XLA's backend optimisation off, which about halves the
+#: compile of a JAX reference here
+_jitr = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 torch.set_num_threads(1)
 
@@ -153,7 +159,7 @@ def cells():
     def inner(*shards):
         return _jax_cells(dict(zip(names, shards)))
 
-    run = jax.jit(j_compat.shard_map(inner, mesh=jmesh, in_specs=(spec,) * len(names),
+    run = _jitr(j_compat.shard_map(inner, mesh=jmesh, in_specs=(spec,) * len(names),
                                      out_specs=spec))
     out = run(*[jnp.asarray(a[n].reshape(-1, *a[n].shape[2:])) for n in names])
     want = {k: np.asarray(v).reshape(R, -1, *v.shape[1:]) for k, v in out.items()}

@@ -25,6 +25,7 @@ on the card: the ``cuda`` packer bitwise against ``slice``.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,10 @@ from repro.kernels.flash_attention.ref import attention_ref
 from repro_torch.core import ring as t_ring
 from repro_torch.core.mesh import make_mesh
 from repro_torch.core.transport import LoopbackTransport, scheduled_collective_count
+
+#: ``jax.jit`` with XLA's backend optimisation off, which about halves the
+#: compile of a JAX reference here
+_jitr = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 torch.set_num_threads(1)
 
@@ -156,7 +161,7 @@ def jax_ring_cells():
         return {name: j_ring.ring_attention(qb, kb, vb, "model", **kw)
                 for name, kw in JAX_CELLS.items()}
 
-    run = jax.jit(j_compat.shard_map(inner, mesh=mesh, in_specs=(spec,) * 3, out_specs=spec))
+    run = _jitr(j_compat.shard_map(inner, mesh=mesh, in_specs=(spec,) * 3, out_specs=spec))
     out = run(*(jnp.asarray(_global(t)) for t in (q, k, v)))
     return (q, k, v), {name: np.asarray(x) for name, x in out.items()}
 
@@ -275,7 +280,7 @@ def jax_states():
     def inner(c, d):
         return {m: j_ring.state_passing(c, d, "model", method=m) for m in ("ring", "tree")}
 
-    run = jax.jit(j_compat.shard_map(inner, mesh=mesh, in_specs=(spec, spec), out_specs=spec))
+    run = _jitr(j_compat.shard_map(inner, mesh=mesh, in_specs=(spec, spec), out_specs=spec))
     out = run(jnp.asarray(C.reshape(-1, 3, 4)), jnp.asarray(Dd.reshape(-1, 3, 1)))
     return C, Dd, {m: np.asarray(x).reshape(C.shape) for m, x in out.items()}
 

@@ -51,6 +51,8 @@ def _rel(got, want) -> float:
     (4, 1000, 1000, 16, 16, 80, False, "bfloat16"),  # hubert-xlarge's encoder
     (2, 300, 200, 8, 4, 64, True, "float32"),        # ragged Sq != Skv
     (1, 77, 130, 4, 1, 128, False, "float32"),
+    (2, 300, 200, 8, 4, 64, True, "bfloat16"),       # the same on the tensor cores: ragged
+    (1, 77, 130, 4, 1, 128, False, "bfloat16"),      # query and key tiles, GQA
     (1, 70, 0, 4, 2, 64, True, "float32"),           # no key: every row masked
 ])
 def test_flash_backward_matches_plain(cuda, b, sq, skv, hq, hkv, d, causal, dtype):
@@ -64,7 +66,8 @@ def test_flash_backward_matches_plain(cuda, b, sq, skv, hq, hkv, d, causal, dtyp
     out = attention(q, k, v, causal=causal)  # grad enabled: FlashAttentionFn
     lse = out.grad_fn.saved_tensors[4]
     dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
-    # the backward's delta pre-pass, dK/dV and dQ; dK/dV skipped with no key
+    # the backward's three launches (f32: delta, dK/dV, dQ; bf16: the
+    # pre-pass, the one pass, dQ's rounding); the middle one skipped with no key
     assert dict(_build.LAUNCHES) == {"flash_attention": 1,
                                      "flash_attention_bwd": 2 + (skv > 0)}
     q32, k32, v32 = (t.detach().float().requires_grad_() for t in (q, k, v))
@@ -87,13 +90,18 @@ def test_flash_backward_matches_plain(cuda, b, sq, skv, hq, hkv, d, causal, dtyp
 
 @pytest.mark.cuda
 def test_flash_backward_is_bitwise_repeatable(cuda):
-    g = torch.Generator(cuda).manual_seed(1)
-    q, k, v = (torch.randn((1, 512, 8, 64), generator=g, device=cuda).bfloat16()
-               .requires_grad_() for _ in range(3))
-    dout = torch.randn((1, 512, 8, 64), generator=g, device=cuda).bfloat16()
-    first = torch.autograd.grad(FlashAttentionFn.apply(q, k, v, True, None), (q, k, v), dout)
-    again = torch.autograd.grad(FlashAttentionFn.apply(q, k, v, True, None), (q, k, v), dout)
-    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    """Three calls give the same bits: dQ's partial sums are added in the
+    order of their kv tiles.  At the training path's shape and llama3-8b's
+    GQA many kv tiles add into each query tile."""
+    for b, s, hq, hkv, d in ((1, 512, 8, 8, 64), (1, 4096, 32, 32, 64), (1, 2048, 32, 8, 128)):
+        g = torch.Generator(cuda).manual_seed(1)
+        q = torch.randn((b, s, hq, d), generator=g, device=cuda).bfloat16().requires_grad_()
+        k, v = (torch.randn((b, s, hkv, d), generator=g, device=cuda).bfloat16()
+                .requires_grad_() for _ in range(2))
+        dout = torch.randn((b, s, hq, d), generator=g, device=cuda).bfloat16()
+        first, *more = (torch.autograd.grad(FlashAttentionFn.apply(q, k, v, True, None),
+                                            (q, k, v), dout) for _ in range(3))
+        assert all(torch.equal(a, c) for again in more for a, c in zip(first, again)), (s, hq, hkv)
 
 
 @pytest.mark.cuda
@@ -132,7 +140,7 @@ def test_train_step_runs_the_backward_kernel(cuda):
         if name == "kernel":
             n = cfg.n_layers * 2
             assert _build.LAUNCHES["flash_attention"] == n
-            assert _build.LAUNCHES["flash_attention_bwd"] == 3 * n  # delta, dK/dV, dQ
+            assert _build.LAUNCHES["flash_attention_bwd"] == 3 * n  # pre-pass, pass, dQ
         else:
             assert not _build.LAUNCHES
     assert math.isfinite(losses["kernel"])

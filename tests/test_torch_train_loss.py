@@ -1,8 +1,9 @@
 """The port's training loss and its gradients against the JAX package, on
 the CPU.
 
-The same parameters (the JAX package's ``init``, carried over by
-``repro_torch.models.convert``) and the same batch (numpy, seeded) go
+The same parameters (drawn with numpy in the shapes of the JAX package's
+``init`` at its statistics, ``test_torch_models_hybrid.random_tree``, so
+nothing compiles for them; carried over by ``repro_torch.models.convert``) and the same batch (numpy, seeded) go
 through JAX's ``jax.value_and_grad`` of ``Model.loss`` (its plain
 attention, ``use_flash=False``) and the port's ``Model.loss`` with
 ``torch.autograd.grad`` (its plain attention on the CPU).  Reduced configs
@@ -15,6 +16,7 @@ remat policies change no value: equal bitwise on the CPU.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,12 +27,17 @@ import torch
 from repro.configs import all_configs as j_all_configs
 from repro.configs import get_config as j_get_config
 from repro.models import build_model as j_build_model
+from test_torch_models_hybrid import random_tree
 from repro_torch.configs import get_config
 from repro_torch.configs.base import all_configs
 from repro_torch.models import build_model
 from repro_torch.models import layers as L
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.train.optimizer import tree_leaves, tree_unflatten
+
+#: ``jax.jit`` with XLA's backend optimisation off, which about halves the
+#: compile of a JAX reference here
+_jitr = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 torch.set_num_threads(1)
 
@@ -56,10 +63,8 @@ def _batch(vocab: int, masked: bool, seed: int = 3) -> dict:
 
 @pytest.fixture(scope="module")
 def jax_params():
-    """The JAX package's parameters of each reduced config, as numpy."""
-    return {name: jax.tree.map(np.asarray,
-                               j_build_model(_cfgs(name)[1]).init(jax.random.key(7)))
-            for name in ARCHS}
+    """Parameters of each reduced config in the JAX package's tree, numpy."""
+    return {name: random_tree(j_build_model(_cfgs(name)[1]).init, 7) for name in ARCHS}
 
 
 def _port_loss_and_grads(cfg, tree, batch):
@@ -84,7 +89,7 @@ def test_loss_and_grads_match_jax(jax_params, name, chunk, masked):
     tree = jax_params[name]
     batch = _batch(cfg.vocab_size, masked)
     jmodel = j_build_model(jcfg)
-    want_loss, want_grads = jax.jit(jax.value_and_grad(
+    want_loss, want_grads = _jitr(jax.value_and_grad(
         lambda p, b: jmodel.loss(p, b)))(jax.tree.map(jnp.asarray, tree),
                                          jax.tree.map(jnp.asarray, batch))
     got_loss, got_grads = _port_loss_and_grads(cfg, tree, batch)

@@ -15,6 +15,8 @@ its properties: an error of at most one scale step, unbiased in the mean
 over seeds.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +31,10 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import OptimizerConfig
 from repro_torch.models.convert import params_from_jax, params_to_numpy
 from repro_torch.train import optimizer as O
+
+#: ``jax.jit`` with XLA's backend optimisation off, which about halves the
+#: compile of a JAX reference here
+_jitr = functools.partial(jax.jit, compiler_options={"xla_backend_optimization_level": 0})
 
 torch.set_num_threads(1)
 
@@ -68,7 +74,7 @@ def test_adamw_matches_jax_over_three_steps(tree_and_grads, state_dtype):
     jopt = J.init_opt_state(jparams, jcfg, state_dtype)
     params = params_from_jax(cfg, tree, "cpu")
     opt = O.init_opt_state(params, ocfg, state_dtype)
-    update = jax.jit(lambda p, g, o: J.adamw_update(p, g, o, jcfg))
+    update = _jitr(lambda p, g, o: J.adamw_update(p, g, o, jcfg))
     for g in grads:
         jparams, jopt, jmet = update(jparams, jax.tree.map(jnp.asarray, g), jopt)
         params, opt, met = O.adamw_update(params, params_from_jax(cfg, g, "cpu"), opt, ocfg)

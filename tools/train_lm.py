@@ -23,7 +23,7 @@
   sequence a microbatch, f32 gradient accumulators).  Launch counts are
   zeroed just before and read just after: ``flash_attention`` must launch
   layers x microbatches times a step, ``flash_attention_bwd`` three times
-  that (its delta pre-pass, dK/dV and dQ kernels).  Prints ms a step (median of steps 2-5), tokens/s, the step's share
+  that (its pre-pass, the one pass and dQ's rounding).  Prints ms a step (median of steps 2-5), tokens/s, the step's share
   of its floor (``model_flops_per_token(4096)`` x 8192 tokens over 989
   TFLOP/s dense bf16), ``torch.cuda.max_memory_allocated``, the device idle
   share of one step (``core/profiling.py``) and the flash forward and
@@ -37,7 +37,7 @@
   injected failure at step 4; the restarted run restores step 4 (so it
   logs 6 losses), finishes, and its losses are within 1e-3 relative of an
   uninterrupted run's; whether they and the final checksum are bitwise
-  equal is printed (the flash backward has no atomics).
+  equal is printed (the flash backward adds dQ in a fixed order).
 * L4, rwkv6-1.6b refuses: ``Model.loss`` raises ``NotImplementedError``,
   and ``logits`` with parameters that require grad raises in the
   ``wkv_chunked`` wrapper, instead of returning a graph without the WKV
@@ -78,11 +78,18 @@ BWD_CASES = (
     ("llama3-8b GQA", (1, 2048, 32, 8, 128, None), "bfloat16", True),
     ("hubert-xlarge encoder, D=80, non-causal", (4, 1000, 16, 16, 80, None), "bfloat16", False),
     ("ragged Sq != Skv, GQA (CUDA-core forward)", (2, 300, 8, 4, 64, 200), "float32", True),
+    ("ragged Sq != Skv, GQA, tensor cores", (2, 300, 8, 4, 64, 200), "bfloat16", True),
+    ("ragged Sq < Skv, MQA, D=128, non-causal, tensor cores", (1, 77, 4, 1, 128, 130),
+     "bfloat16", False),
     ("no key: every row fully masked (CUDA-core forward)", (1, 70, 4, 2, 64, 0), "float32",
      True),
 )
 #: the training path's attention shape, one sequence a microbatch
 PATH_SHAPE = (1, 4096, 32, 32, 64)
+#: (B, S, Hq, Hkv, D) where three backward calls must give the same bits:
+#: the path's shape and llama3-8b's GQA, many kv tiles adding into each
+#: query tile's dQ
+REPEAT_SHAPES = (PATH_SHAPE, (1, 2048, 32, 8, 128))
 
 
 class PhaseFailure(RuntimeError):
@@ -162,7 +169,7 @@ def backward_checks(torch, dev, fails: list) -> dict:
         ok = finite and all(e <= tol for e in errs.values()) and lse_err <= LSE_TOL
         if skv == 0:  # no key: zero output and gradients, lse -inf
             ok = ok and not qg.grad.any() and bool((lse == float("-inf")).all())
-        # the backward's delta pre-pass, dK/dV and dQ; dK/dV skipped with no key
+        # the backward's three kernels; the middle one skipped with no key
         if launches != {"flash_attention": 1, "flash_attention_bwd": 2 + (skv != 0)}:
             ok = False
             fails.append(f"L1 {label}: launches {launches}")
@@ -194,28 +201,63 @@ def backward_checks(torch, dev, fails: list) -> dict:
     dout_t = dout.transpose(1, 2)
     flops = bwd_flops(b, s, hq, s, d, True)
     nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+
+    def kernel():
+        return flash_attention_bwd(q, k, v, od, dout, lse, causal=True)
+
+    def library():
+        return torch.autograd.grad(sdpa, (qt, kt, vt), dout_t, retain_graph=True)
+
+    # in turns: kernel, SDPA, SDPA, kernel
+    ms = [events_ms(torch, kernel)]
+    lib_ms = [events_ms(torch, library), events_ms(torch, library)]
+    ms.append(events_ms(torch, kernel))
     out["path"] = dict(
         shape=list(PATH_SHAPE), dtype="bfloat16", causal=True,
-        ms=events_ms(torch, lambda: flash_attention_bwd(q, k, v, od, dout, lse, causal=True)),
+        ms=statistics.median(ms), ms_turns=ms,
         plain_ms=events_ms(torch, lambda: torch.autograd.grad(plain, (qp, kp, vp), dout,
                                                               retain_graph=True), reps=3),
-        library_ms=events_ms(torch, lambda: torch.autograd.grad(sdpa, (qt, kt, vt), dout_t,
-                                                                retain_graph=True)),
+        library_ms=statistics.median(lib_ms), library_ms_turns=lib_ms,
         bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
-        flops=flops, bytes=nbytes,
+        flops=flops, bytes=nbytes, tflops=flops / (min(ms) / 1e3) / 1e12,
         flop_convention="5 products x 2*B*Hq*Sq*Skv*D, halved (causal)",
-        timing="CUDA events around one call, median of 5 (plain: 3) after a warm-up; ms the "
-               "kernel alone, plain_ms and library_ms autograd's backward of attention_plain "
-               "and of F.scaled_dot_product_attention on (B, H, S, D) copies")
+        timing="CUDA events around one call, median of 5 (plain: 3) after a warm-up, in turns "
+               "kernel, SDPA, SDPA, kernel; ms the kernel alone, plain_ms and library_ms "
+               "autograd's backward of attention_plain and of F.scaled_dot_product_attention "
+               "on (B, H, S, D) copies; tflops on the 5 products at the faster turn")
     del plain, sdpa
-    dq, dk, dv = flash_attention_bwd(q, k, v, od, dout, lse, causal=True)
-    dq2, dk2, dv2 = flash_attention_bwd(q, k, v, od, dout, lse, causal=True)
-    out["path"]["bitwise_repeatable"] = bool(torch.equal(dq, dq2) and torch.equal(dk, dk2)
-                                             and torch.equal(dv, dv2))
-    if not out["path"]["bitwise_repeatable"]:
-        fails.append("L1: two backward calls on the same inputs differ")
-    print(f"L1 backward at the training path's shape: {json.dumps(out['path'])}", flush=True)
+    out["path"]["bitwise_repeatable"] = _repeatable(torch, dev, flash_attention_bwd)
+    if not all(out["path"]["bitwise_repeatable"].values()):
+        fails.append(f"L1: three backward calls on the same inputs differ: "
+                     f"{out['path']['bitwise_repeatable']}")
+    p = out["path"]
+    print(f"L1 backward at the training path's shape: {json.dumps(p)}", flush=True)
+    print(f"L1 path backward ms {p['ms']:.4f} (turns {p['ms_turns']})", flush=True)
+    print(f"L1 path SDPA backward ms {p['library_ms']:.4f} (turns {p['library_ms_turns']})",
+          flush=True)
+    print(f"L1 path bound ms {p['bound_ms']:.4f} ({p['bound_by']})", flush=True)
+    print(f"L1 path TFLOP/s on the 5 products {p['tflops']:.1f}", flush=True)
+    print(f"L1 bitwise repeatable over three calls {json.dumps(p['bitwise_repeatable'])}",
+          flush=True)
+    return out
+
+
+def _repeatable(torch, dev, flash_attention_bwd) -> dict:
+    """Whether three backward calls on the same inputs give the same bits,
+    at each of ``REPEAT_SHAPES`` (causal bf16)."""
+    from repro_torch.kernels.flash_attention.flash import flash_attention
+
+    out = {}
+    for b, s, hq, hkv, d in REPEAT_SHAPES:
+        q, k, v, dout = _qkv(torch, dev, b, s, hq, hkv, d, None, torch.bfloat16, seed=2)
+        lse = torch.empty((b, hq, s), dtype=torch.float32, device=dev)
+        o = flash_attention(q, k, v, causal=True, lse=lse)
+        first, *more = (flash_attention_bwd(q, k, v, o, dout, lse, causal=True)
+                        for _ in range(3))
+        out[str([b, s, hq, hkv, d])] = all(torch.equal(x, y) for again in more
+                                           for x, y in zip(first, again))
+        del q, k, v, dout, lse, o, first, more
     return out
 
 
@@ -272,7 +314,8 @@ def _flash_device_ms(trace: dict) -> dict:
     """Device ms a step of the flash forward (either route's kernel) and of
     the backward's three kernels, from a ``device_breakdown`` trace."""
     fwd = ("flash_tc_kernel", "flash_kernel")
-    bwd = ("delta_kernel", "dkdv_tc_kernel", "dq_tc_kernel", "dkdv_kernel", "dq_kernel")
+    bwd = ("bwd_prep_kernel", "bwd_tc_kernel", "bwd_finish_kernel", "delta_kernel", "dkdv_kernel",
+           "dq_kernel")
     out = {"fwd_ms": 0.0, "bwd_ms": 0.0, "fwd_launches": 0.0, "bwd_launches": 0.0}
     for k in trace["kernels"]:
         for tag, names in (("fwd", fwd), ("bwd", bwd)):
@@ -331,7 +374,7 @@ def full_width_training(torch, dev, fails: list) -> dict:
     if (launches.get("flash_attention") != want
             or launches.get("flash_attention_bwd") != 3 * want):
         fails.append(f"L2: launches {launches}, want {want} forward and {3 * want} backward "
-                     f"(delta, dK/dV, dQ a call)")
+                     f"(three a call)")
     print(f"L2 stablelm-1.6b Trainer, 6 steps: {json.dumps(out)}", flush=True)
 
     # one fresh state: every leaf's gradient, and one step's device trace
