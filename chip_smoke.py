@@ -7,7 +7,9 @@ phi3.5-moe served and expert-parallel over 16 ranks, one grok-1 MoE FFN,
 the LM serve bench with the collective count of its ring prefill, and the
 last model families: zamba2-1.2b served and sequence-parallel,
 llama-3.2-vision-11b served, hubert-xlarge's encoder, and training:
-stablelm-1.6b at full width through the flash-attention backward kernel.
+stablelm-1.6b at full width through the flash-attention backward kernel,
+rwkv6-1.6b at full width through the WKV backward kernel, and the moe,
+hybrid, vlm and audio families.
 
     python3 chip_smoke.py
 
@@ -306,9 +308,28 @@ L. Training (``tools/train_lm.py``), after phase G, the last: (L1) the flash
    and dQ's rounding, each counted), a finite non-zero gradient on every
    parameter leaf, ms a step against its floor, peak memory, the idle
    share of a traced step; (L3) a restart from a checkpoint on the card
-   against an uninterrupted run (2 layers); (L4) rwkv6-1.6b's loss and
-   its logits with grad refuse.  Its launches join the summary line's
-   under ``"L"``; the backward kernel's row is its own.
+   against an uninterrupted run (2 layers); (L4) the kernels still
+   without a backward (the pack kernels, ``stencil27``, the bare
+   ``flash_attention``) refuse a gradient.  Its launches join the summary
+   line's under ``"L"``; the backward kernel's row is its own.
+M. Every family trains (``tools/train_families_lm.py``), after phase L:
+   (M1) the WKV backward kernel ``wkv_chunked_bwd`` through
+   ``WkvChunkedFn`` against ``wkv_bwd_plain`` in float64 at rwkv6-1.6b's
+   training shape (1, 4096, 32, 64) chunk 64, head sizes 8, 16 and 32 at
+   chunk 16, ``T = c`` (64 and a ragged 40), a given ``S0`` with a
+   non-zero gradient on the final state, and bf16, every output within
+   its stated tolerance; three calls bitwise equal; timed by CUDA events
+   and ``torch.profiler`` beside the plain version and autograd through
+   ``wkv_plain``, with its bound; (M2) rwkv6-1.6b at full width and depth
+   through the ``Trainer``, 6 steps of 2 x 4096 tokens in 2 microbatches:
+   finite losses, ``wkv_chunked_bwd`` launched 48 times a step, a finite
+   non-zero gradient on every leaf, ms a step against its floor, peak
+   memory, the idle share and the WKV device ms of a traced step; (M3)
+   hubert-xlarge and zamba2-1.2b at full width and depth, phi3.5-moe at 2
+   layers, llama-3.2-vision-11b at one group with its gates open, 3 steps
+   each: finite losses, the flash forward and backward launches, every
+   leaf's gradient.  The WKV launches of M2 and the flash launches of M3
+   join the summary line's under ``"M"``; the WKV backward has its row.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -788,6 +809,45 @@ def training(torch, dev, kernels: dict) -> dict:
     if not kernels["flash_attention_bwd"]["launches"]:
         fail("phase L: the training path never launched flash_attention_bwd")
     print(f"phase L took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def families_training(torch, dev, kernels: dict) -> dict:
+    """Phase M (``tools/train_families_lm.py``): the WKV backward against
+    its plain version, rwkv6-1.6b trained at full width, the other families'
+    steps; the WKV launches of M2 and the flash launches of M3 join the
+    summary line's under ``"M"``, with the WKV backward's own row."""
+    import train_families_lm
+    import train_lm
+
+    t0 = time.perf_counter()
+    try:
+        out = train_families_lm.families_train_phase(torch, dev)
+    except train_lm.PhaseFailure as e:
+        fail(f"phase M: {e}")
+    out["phase_s"] = time.perf_counter() - t0
+    m2 = out["M2"]["launches"]
+    add_launches(kernels["wkv_chunked"], "M", m2.get("wkv_chunked", 0))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        add_launches(kernels[name], "M", sum(f["launches"].get(name, 0)
+                                             for f in out["M3"].values() if isinstance(f, dict)
+                                             and "launches" in f))
+    path = out["M1"]["path"]
+    kernels["wkv_chunked_bwd"] = dict(
+        name="wkv_chunked_bwd", route="cuda", source="src/repro_torch/kernels/csrc/wkv.cu",
+        replaces="src/repro/kernels/wkv/wkv.py:90",
+        replaces_note="the backward of wkv_chunked; the JAX package has no backward kernel "
+                      "and differentiates its jnp wkv_scan (src/repro/models/rwkv.py) with XLA",
+        max_abs_err=out["M1"]["max_abs_err"], ms=path["ms"], plain_ms=path["plain_ms"],
+        bound_ms=path["bound_ms"], bound_by=path["bound_by"], library_ms=None,
+        device_ms=path["device_ms"], autograd_plain_ms=path["autograd_plain_ms"],
+        timing=path["timing"], shape="r, k, v, lw, dy (1, 4096, 32, 64) f32, chunk 64",
+        flops=path["flops"], flop_convention=path["flop_convention"], bytes=path["bytes"],
+        bitwise_repeatable=path["bitwise_repeatable"])
+    add_launches(kernels["wkv_chunked_bwd"], "M", m2.get("wkv_chunked_bwd", 0))
+    if not kernels["wkv_chunked_bwd"]["launches"]:
+        fail("phase M: the training path never launched wkv_chunked_bwd")
+    print(f"phase M took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2503,6 +2563,11 @@ def main() -> int:
 
     # -- L. training: the flash backward, stablelm-1.6b at full width -----------
     record["training"] = training(torch, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- M. every family trains: the WKV backward, rwkv6-1.6b, the others --------
+    record["families_training"] = families_training(torch, dev, kernels)
 
     # -- 5. results -----------------------------------------------------------
     record.update(

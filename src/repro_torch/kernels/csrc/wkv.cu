@@ -11,7 +11,8 @@
 //            + (sum_i r_ti u_i k_ti) v_t                      diagonal bonus
 //   S       <- diag(exp(cum_T)) S + sum_s (k_s * exp(cum_T - cum_s)) (x) v_s
 // starting from a given S0 (zeros when none is given) and writing the final
-// state.
+// state; for training it also writes each chunk's entry state, which the
+// backward below reads.
 //
 // What bounds it on this card: shared-memory traffic and latency at 8
 // warps an SM, not a roofline (operations bound it there: about 4*c*hd*hd
@@ -299,9 +300,9 @@ template <typename T, int HD, int CL>
 __global__ void __launch_bounds__(NTHREADS)
 wkv_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ lw, const T* __restrict__ u, const float* __restrict__ S0,
-                 T* __restrict__ y, float* __restrict__ S_fin, int Tlen, int H, int c,
-                 Strides rs, Strides ks, Strides vs, Strides ls, long long usb, long long ush,
-                 int vec) {
+                 T* __restrict__ y, float* __restrict__ S_fin, float* __restrict__ states,
+                 int Tlen, int H, int c, Strides rs, Strides ks, Strides vs, Strides ls,
+                 long long usb, long long ush, int vec) {
   using L = Layout<T, HD, CL>;
   constexpr int JT = Tile<HD>::JT, LD = Tile<HD>::LD, LDA = Tile<HD>::LDA, J4 = JT / 4;
   static_assert(NQ == 4 && NTHREADS % 32 == 0, "a tile's four rows are stored by its four lanes");
@@ -598,6 +599,11 @@ wkv_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __re
   // loads of chunk n + 2 are in flight under both
   for (int n = 0; n < nch; ++n) {
     if (n + 2 < nch) stage(n + 2);  // the staging is free: chunk n + 1 is prepped
+    if (states) {  // chunk n's entry state, this CTA's columns (training)
+      const float* Sc = Sb + (n & 1) * HD * JT;
+      float* dst = states + (((long long)b * H + h) * nch + n) * HD * HD + j0;
+      for (int e = tid; e < HD * JT; e += NTHREADS) dst[(long long)(e / JT) * HD + e % JT] = Sc[e];
+    }
     output_and_state(n);
     if (n + 1 < nch) compute_a(n + 1);
     cp_async_wait_all();  // chunk n + 2 is staged (this thread's copies)
@@ -622,8 +628,8 @@ __global__ void __launch_bounds__(NTHREADS_D)
 wkv_decode_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ lw, const T* __restrict__ u,
                   const float* __restrict__ S0, T* __restrict__ y, float* __restrict__ S_fin,
-                  int Tlen, int H, Strides rs, Strides ks, Strides vs, Strides ls, long long usb,
-                  long long ush, int s0_vec) {
+                  float* __restrict__ states, int Tlen, int H, Strides rs, Strides ks,
+                  Strides vs, Strides ls, long long usb, long long ush, int s0_vec) {
   constexpr int QR = HD / 4, RPP = NTHREADS_D / QR, MR = (HD + RPP - 1) / RPP;
   constexpr int GR = RPP < HD ? RPP : HD;            // row groups that hold rows
   constexpr int NW = (HD + 31) / 32;                 // warps that stage a token
@@ -649,6 +655,14 @@ wkv_decode_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
   T* yb = y + (long long)b * Tlen * ys + h * HD;
   for (int t = 0; t < Tlen; ++t) {
     const int buf = t & 1;
+    if (states) {  // token t's entry state (training)
+      float* dst = states + (((long long)b * H + h) * Tlen + t) * HD * HD + 4 * q;
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        const int i = r0 + m * RPP;
+        if (i < HD) *reinterpret_cast<float4*>(dst + (long long)i * HD) = S[m];
+      }
+    }
     if (tid < NW * 32) {
       float ruk = 0.f;
       if (tid < HD) {
@@ -697,6 +711,246 @@ wkv_decode_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward (training): wkv_chunked_bwd.  The JAX package has no WKV backward
+// kernel (XLA differentiates its jnp scan); this one computes the same
+// gradient from the forward's chunk-entry states, marching the chunks in
+// reverse with the gradient dS of the state leaving each chunk:
+//   dS_in = diag(e^tot) dS + sum_t (r_t e^cp_t)^T dy_t
+//   dr_t  = (dy_t S^T) e^cp_t + sum_{s<t} (dy_t.v_s) k_s e^(cp_t - cum_s) + (dy_t.v_t) u k_t
+//   dk_s  = sum_{t>s} (dy_t.v_s) r_t e^(cp_t - cum_s) + (v_s dS^T) e^(tot - cum_s)
+//           + (dy_s.v_s) u r_s
+//   dv_s  = sum_{t>=s} A_ts dy_t (A_ss the bonus r_s.u.k_s) + (k_s e^(tot - cum_s)) dS
+//   du    = sum_t (dy_t.v_t) r_t k_t
+// and the log decay's closed form: with dr', dk' the parts without the
+// bonus, dlw_j = sum_{t>j} (r dr')_t - sum_{s>=j} (k dk')_s
+// + rowsum(S_fin .* dS_fin), one running sum per channel carried across the
+// chunks (every pair s < j < t of a term counted once).
+//
+// A simple design, right first: one CTA per (head, batch) holds S, dS, the
+// chunk's rows and the pair matrices A and B = dy.v in shared memory (183 KB
+// at hd 64, c 64) and takes a per-pair exponential in each of the three
+// pairwise sums (A, dr's and dk's), f32 on the CUDA cores.  cp_t is the
+// previous row's running sum (exactly, so consecutive rows' decay is 1 and
+// no exponent is positive).  Each output element is summed by one thread in
+// a fixed order, and du is written per (batch, head) for the caller to sum
+// over the batch: the result is bitwise repeatable.  The forward's factored
+// sub-blocks and a head's column tiles in a cluster are the second design.
+// ---------------------------------------------------------------------------
+
+constexpr int NTHREADS_B = 256;
+
+// Shared memory of the backward in floats, for c rows at head size HD: seven
+// (c x LD) row arrays (r, k, v, dy, the running sums of lw in log2 units,
+// r dr' and k dk'), S and dS (HD x LD each), A and B (c x (c + 1): the lower
+// triangle with the diagonal) and u.
+template <int HD>
+struct BwdLayout {
+  static constexpr int LD = HD + 1;
+  int LC;
+  size_t R, K, V, Y, C, RD, KD, S, dS, A, B, U, total;
+  __host__ __device__ explicit BwdLayout(int c) : LC(c + 1) {
+    size_t o = 0;
+    auto take = [&o](size_t n) {
+      const size_t at = o;
+      o += n;
+      return at;
+    };
+    R = take(c * LD);
+    K = take(c * LD);
+    V = take(c * LD);
+    Y = take(c * LD);
+    C = take(c * LD);
+    RD = take(c * LD);
+    KD = take(c * LD);
+    S = take(HD * LD);
+    dS = take(HD * LD);
+    A = take(c * LC);
+    B = take(c * LC);
+    U = take(HD);
+    total = o;
+  }
+};
+
+// r, k, v, lw, dy and the outputs dr, dk, dv, dlw are (B, T, H, HD)
+// contiguous; states (B, H, T/c, HD, HD), S_fin, dS_fin and dS0 (B, H, HD,
+// HD), du (B, H, HD), all f32.  dS_fin and dS0 may be null.
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS_B)
+wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+               const T* __restrict__ lw, const T* __restrict__ u, const T* __restrict__ dy,
+               const float* __restrict__ states, const float* __restrict__ S_fin,
+               const float* __restrict__ dS_fin, T* __restrict__ dr, T* __restrict__ dk,
+               T* __restrict__ dv, T* __restrict__ dlw, float* __restrict__ du,
+               float* __restrict__ dS0, int Tlen, int H, int c, long long usb, long long ush) {
+  constexpr int LD = HD + 1;
+  constexpr int NJ = HD * HD >= NTHREADS_B ? HD * HD / NTHREADS_B : 1;  // columns a task
+  constexpr int NG = HD / NJ;                                          // column groups
+  const BwdLayout<HD> lay(c);
+  const int LC = lay.LC;
+  extern __shared__ __align__(16) float bsm[];
+  float* R = bsm + lay.R;
+  float* K = bsm + lay.K;
+  float* V = bsm + lay.V;
+  float* Y = bsm + lay.Y;
+  float* C = bsm + lay.C;    // inclusive running sums of lw * log2(e) in the chunk
+  float* RD = bsm + lay.RD;  // r dr'
+  float* KD = bsm + lay.KD;  // k dk'
+  float* S = bsm + lay.S;
+  float* dS = bsm + lay.dS;
+  float* A = bsm + lay.A;
+  float* Bm = bsm + lay.B;
+  float* U = bsm + lay.U;
+  const int tid = threadIdx.x, h = blockIdx.x, b = blockIdx.y;
+  const int nch = Tlen / c;
+  const long long rows = (long long)H * HD;                               // elements a time step
+  const long long base = (long long)b * Tlen * rows + (long long)h * HD;  // (b, 0, h, 0)
+  const long long sbase = ((long long)b * H + h) * HD * HD;               // (b, h, 0, 0)
+
+  for (int i = tid; i < HD; i += NTHREADS_B) U[i] = to_f32(u[b * usb + h * ush + i]);
+  for (int e = tid; e < HD * HD; e += NTHREADS_B)
+    dS[(e / HD) * LD + e % HD] = dS_fin ? dS_fin[sbase + e] : 0.f;
+  // channel tid's running sum of dlw, from rowsum(S_fin .* dS_fin), and du
+  float run = 0.f, du_acc = 0.f;
+  if (tid < HD && dS_fin)
+    for (int j = 0; j < HD; ++j)
+      run = fmaf(S_fin[sbase + tid * HD + j], dS_fin[sbase + tid * HD + j], run);
+
+  for (int n = nch - 1; n >= 0; --n) {
+    const long long t0 = (long long)n * c;
+    for (int e = tid; e < c * HD; e += NTHREADS_B) {
+      const int t = e / HD, i = e % HD, w = t * LD + i;
+      const long long g = base + (t0 + t) * rows + i;
+      R[w] = to_f32(r[g]);
+      K[w] = to_f32(k[g]);
+      V[w] = to_f32(v[g]);
+      Y[w] = to_f32(dy[g]);
+      C[w] = to_f32(lw[g]) * LOG2E;
+    }
+    const float* Sg = states + (((long long)b * H + h) * nch + n) * HD * HD;
+    for (int e = tid; e < HD * HD; e += NTHREADS_B) S[(e / HD) * LD + e % HD] = Sg[e];
+    __syncthreads();
+    for (int i = tid; i < HD; i += NTHREADS_B) {
+      float acc = 0.f;
+      for (int t = 0; t < c; ++t) {
+        acc += C[t * LD + i];
+        C[t * LD + i] = acc;
+      }
+    }
+    __syncthreads();
+
+    // pairs s <= t, one a thread: B_ts = dy_t.v_s, A_ts the decayed r_t.k_s
+    // (s < t) or the bonus r_t.u.k_t (s = t)
+    for (int p = tid; p < c * (c + 1) / 2; p += NTHREADS_B) {
+      int t = (int)((sqrtf(8.f * p + 1.f) - 1.f) * 0.5f);
+      while ((t + 1) * (t + 2) / 2 <= p) ++t;
+      while (t * (t + 1) / 2 > p) --t;
+      const int s = p - t * (t + 1) / 2;
+      const float* rt = R + t * LD;
+      const float* yt = Y + t * LD;
+      const float* kk = K + s * LD;
+      const float* vv = V + s * LD;
+      float bsum = 0.f, asum = 0.f;
+      if (s < t) {
+        const float* cpt = C + (t - 1) * LD;
+        const float* cs = C + s * LD;
+#pragma unroll 4
+        for (int i = 0; i < HD; ++i) {
+          bsum = fmaf(yt[i], vv[i], bsum);
+          asum = fmaf(rt[i] * kk[i], ex2(cpt[i] - cs[i]), asum);
+        }
+      } else {
+#pragma unroll 4
+        for (int i = 0; i < HD; ++i) {
+          bsum = fmaf(yt[i], vv[i], bsum);
+          asum = fmaf(rt[i] * U[i], kk[i], asum);
+        }
+      }
+      A[t * LC + s] = asum;
+      Bm[t * LC + s] = bsum;
+    }
+    __syncthreads();
+
+    // dr and r dr' per (row, channel)
+    for (int e = tid; e < c * HD; e += NTHREADS_B) {
+      const int t = e / HD, i = e % HD;
+      const float cpt = t > 0 ? C[(t - 1) * LD + i] : 0.f;
+      float st = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < HD; ++j) st = fmaf(Y[t * LD + j], S[i * LD + j], st);
+      float drp = ex2(cpt) * st;
+      for (int s = 0; s < t; ++s)
+        drp = fmaf(Bm[t * LC + s] * K[s * LD + i], ex2(cpt - C[s * LD + i]), drp);
+      dr[base + (t0 + t) * rows + i] = from_f32<T>(fmaf(Bm[t * LC + t] * U[i], K[t * LD + i], drp));
+      RD[t * LD + i] = R[t * LD + i] * drp;
+    }
+    // dk and k dk' per (row, channel)
+    for (int e = tid; e < c * HD; e += NTHREADS_B) {
+      const int s = e / HD, i = e % HD;
+      const float cs = C[s * LD + i];
+      float vt = 0.f;
+#pragma unroll 8
+      for (int j = 0; j < HD; ++j) vt = fmaf(V[s * LD + j], dS[i * LD + j], vt);
+      float dkp = ex2(C[(c - 1) * LD + i] - cs) * vt;
+      for (int t = s + 1; t < c; ++t)
+        dkp = fmaf(Bm[t * LC + s] * R[t * LD + i], ex2(C[(t - 1) * LD + i] - cs), dkp);
+      dk[base + (t0 + s) * rows + i] = from_f32<T>(fmaf(Bm[s * LC + s] * U[i], R[s * LD + i], dkp));
+      KD[s * LD + i] = K[s * LD + i] * dkp;
+    }
+    // dv per (row, NJ columns)
+    for (int e = tid; e < c * NG; e += NTHREADS_B) {
+      const int s = e % c, j0 = (e / c) * NJ;
+      float acc[NJ];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) acc[jj] = 0.f;
+      for (int t = s; t < c; ++t) {
+        const float a = A[t * LC + s];
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) acc[jj] = fmaf(a, Y[t * LD + j0 + jj], acc[jj]);
+      }
+      for (int i = 0; i < HD; ++i) {
+        const float kd = K[s * LD + i] * ex2(C[(c - 1) * LD + i] - C[s * LD + i]);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) acc[jj] = fmaf(kd, dS[i * LD + j0 + jj], acc[jj]);
+      }
+      T* out = dv + base + (t0 + s) * rows + j0;
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) out[jj] = from_f32<T>(acc[jj]);
+    }
+    __syncthreads();
+
+    // dlw and du by channel, rows in reverse; then dS <- dS_in in place, an
+    // element a thread
+    if (tid < HD) {
+      const int i = tid;
+      for (int t = c - 1; t >= 0; --t) {
+        run -= KD[t * LD + i];
+        dlw[base + (t0 + t) * rows + i] = from_f32<T>(run);
+        run += RD[t * LD + i];
+        du_acc = fmaf(Bm[t * LC + t] * R[t * LD + i], K[t * LD + i], du_acc);
+      }
+    }
+    for (int e = tid; e < HD * NG; e += NTHREADS_B) {
+      const int i = e % HD, j0 = (e / HD) * NJ;
+      const float et = ex2(C[(c - 1) * LD + i]);
+      float acc[NJ];
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) acc[jj] = et * dS[i * LD + j0 + jj];
+      for (int t = 0; t < c; ++t) {
+        const float rd = R[t * LD + i] * (t > 0 ? ex2(C[(t - 1) * LD + i]) : 1.f);
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) acc[jj] = fmaf(rd, Y[t * LD + j0 + jj], acc[jj]);
+      }
+#pragma unroll
+      for (int jj = 0; jj < NJ; ++jj) dS[i * LD + j0 + jj] = acc[jj];
+    }
+    __syncthreads();
+  }
+  if (dS0)
+    for (int e = tid; e < HD * HD; e += NTHREADS_B) dS0[sbase + e] = dS[(e / HD) * LD + e % HD];
+  if (tid < HD) du[((long long)b * H + h) * HD + tid] = du_acc;
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // CTAs of a head that share A: pairs (1 where a head is one CTA).  A CTA of
@@ -725,9 +979,10 @@ cudaError_t allow_smem() {
 
 template <typename T, int HD>
 cudaError_t launch_chunked(const void* r, const void* k, const void* v, const void* lw,
-                           const void* u, const float* S0, void* y, float* S_fin, int B,
-                           int Tlen, int H, int c, Strides rs, Strides ks, Strides vs, Strides ls,
-                           long long usb, long long ush, cudaStream_t stream) {
+                           const void* u, const float* S0, void* y, float* S_fin,
+                           float* states, int B, int Tlen, int H, int c, Strides rs, Strides ks,
+                           Strides vs, Strides ls, long long usb, long long ush,
+                           cudaStream_t stream) {
   constexpr int EP = 16 / (int)sizeof(T), CL = cluster_size<HD>();
   const cudaError_t attr = allow_smem<T, HD, CL>();
   if (attr != cudaSuccess) return attr;
@@ -749,48 +1004,102 @@ cudaError_t launch_chunked(const void* r, const void* k, const void* v, const vo
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, wkv_chunk_kernel<T, HD, CL>, static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(lw), static_cast<const T*>(u), S0,
-      static_cast<T*>(y), S_fin, Tlen, H, c, rs, ks, vs, ls, usb, ush, (int)vec);
+      static_cast<T*>(y), S_fin, states, Tlen, H, c, rs, ks, vs, ls, usb, ush, (int)vec);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch_decode(const void* r, const void* k, const void* v, const void* lw,
-                          const void* u, const float* S0, void* y, float* S_fin, int B, int Tlen,
-                          int H, Strides rs, Strides ks, Strides vs, Strides ls, long long usb,
-                          long long ush, cudaStream_t stream) {
+                          const void* u, const float* S0, void* y, float* S_fin, float* states,
+                          int B, int Tlen, int H, Strides rs, Strides ks, Strides vs, Strides ls,
+                          long long usb, long long ush, cudaStream_t stream) {
   wkv_decode_kernel<T, HD><<<dim3(H, B), NTHREADS_D, 0, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(lw), static_cast<const T*>(u), S0, static_cast<T*>(y), S_fin, Tlen,
-      H, rs, ks, vs, ls, usb, ush, (int)aligned16(S0));
+      static_cast<const T*>(lw), static_cast<const T*>(u), S0, static_cast<T*>(y), S_fin, states,
+      Tlen, H, rs, ks, vs, ls, usb, ush, (int)aligned16(S0));
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* r, const void* k, const void* v, const void* lw, const void* u,
-                   const float* S0, void* y, float* S_fin, int B, int Tlen, int H, int c,
-                   Strides rs, Strides ks, Strides vs, Strides ls, long long usb, long long ush,
-                   cudaStream_t st) {
+                   const float* S0, void* y, float* S_fin, float* states, int B, int Tlen, int H,
+                   int c, Strides rs, Strides ks, Strides vs, Strides ls, long long usb,
+                   long long ush, cudaStream_t st) {
   if (c == 1)
-    return launch_decode<T, HD>(r, k, v, lw, u, S0, y, S_fin, B, Tlen, H, rs, ks, vs, ls, usb,
-                                ush, st);
-  return launch_chunked<T, HD>(r, k, v, lw, u, S0, y, S_fin, B, Tlen, H, c, rs, ks, vs, ls, usb,
-                               ush, st);
+    return launch_decode<T, HD>(r, k, v, lw, u, S0, y, S_fin, states, B, Tlen, H, rs, ks, vs, ls,
+                                usb, ush, st);
+  return launch_chunked<T, HD>(r, k, v, lw, u, S0, y, S_fin, states, B, Tlen, H, c, rs, ks, vs,
+                               ls, usb, ush, st);
 }
 
 template <typename T>
 cudaError_t launch_hd(int HD, const void* r, const void* k, const void* v, const void* lw,
-                      const void* u, const float* S0, void* y, float* S_fin, int B, int Tlen,
-                      int H, int c, Strides rs, Strides ks, Strides vs, Strides ls,
-                      long long usb, long long ush, cudaStream_t st) {
+                      const void* u, const float* S0, void* y, float* S_fin, float* states,
+                      int B, int Tlen, int H, int c, Strides rs, Strides ks, Strides vs,
+                      Strides ls, long long usb, long long ush, cudaStream_t st) {
+#define WKV_CASE(D)                                                                           \
+  case D:                                                                                     \
+    return launch<T, D>(r, k, v, lw, u, S0, y, S_fin, states, B, Tlen, H, c, rs, ks, vs, ls, \
+                        usb, ush, st);
   switch (HD) {
-    case 8:
-      return launch<T, 8>(r, k, v, lw, u, S0, y, S_fin, B, Tlen, H, c, rs, ks, vs, ls, usb, ush, st);
-    case 16:
-      return launch<T, 16>(r, k, v, lw, u, S0, y, S_fin, B, Tlen, H, c, rs, ks, vs, ls, usb, ush, st);
-    case 32:
-      return launch<T, 32>(r, k, v, lw, u, S0, y, S_fin, B, Tlen, H, c, rs, ks, vs, ls, usb, ush, st);
-    case 64:
-      return launch<T, 64>(r, k, v, lw, u, S0, y, S_fin, B, Tlen, H, c, rs, ks, vs, ls, usb, ush, st);
+    WKV_CASE(8)
+    WKV_CASE(16)
+    WKV_CASE(32)
+    WKV_CASE(64)
+#undef WKV_CASE
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Once per kernel instance and device: allow the backward's shared memory
+// at the longest chunk.
+template <typename T, int HD>
+cudaError_t allow_bwd_smem() {
+  constexpr int MAX_DEVICES = 64;
+  static bool done[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(wkv_bwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(BwdLayout<HD>(MAX_CHUNK).total * sizeof(float)));
+  if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
+  return err;
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const void* r, const void* k, const void* v, const void* lw, const void* u,
+                       const void* dy, const float* states, const float* S_fin,
+                       const float* dS_fin, void* dr, void* dk, void* dv, void* dlw, float* du,
+                       float* dS0, int B, int Tlen, int H, int c, long long usb, long long ush,
+                       cudaStream_t st) {
+  const cudaError_t attr = allow_bwd_smem<T, HD>();
+  if (attr != cudaSuccess) return attr;
+  wkv_bwd_kernel<T, HD><<<dim3(H, B), NTHREADS_B, BwdLayout<HD>(c).total * sizeof(float), st>>>(
+      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(lw), static_cast<const T*>(u), static_cast<const T*>(dy), states,
+      S_fin, dS_fin, static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<T*>(dlw), du, dS0, Tlen, H, c, usb, ush);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd_hd(int HD, const void* r, const void* k, const void* v, const void* lw,
+                          const void* u, const void* dy, const float* states, const float* S_fin,
+                          const float* dS_fin, void* dr, void* dk, void* dv, void* dlw,
+                          float* du, float* dS0, int B, int Tlen, int H, int c, long long usb,
+                          long long ush, cudaStream_t st) {
+#define WKV_BWD_CASE(D)                                                                       \
+  case D:                                                                                     \
+    return launch_bwd<T, D>(r, k, v, lw, u, dy, states, S_fin, dS_fin, dr, dk, dv, dlw, du,   \
+                            dS0, B, Tlen, H, c, usb, ush, st);
+  switch (HD) {
+    WKV_BWD_CASE(8)
+    WKV_BWD_CASE(16)
+    WKV_BWD_CASE(32)
+    WKV_BWD_CASE(64)
+#undef WKV_BWD_CASE
     default:
       return cudaErrorInvalidValue;
   }
@@ -806,9 +1115,11 @@ extern "C" {
 // (B, H, hd, hd) f32 contiguous or null for zeros.  hd is 8, 16, 32 or 64;
 // c divides T and is at most 64; H, B <= 65535.  c == 1 takes the decode
 // route; otherwise pairs of a head's CTAs share A (one CTA a head where
-// hd <= 16).
+// hd <= 16).  states, null or (B, H, T/c, hd, hd) f32 contiguous, receives
+// each chunk's entry state (S0 first), for the backward.
 int wkv_chunked(const void* r, const void* k, const void* v, const void* lw, const void* u,
-                const void* S0, void* y, void* S_fin, int dtype, int B, int T, int H, int hd,
+                const void* S0, void* y, void* S_fin, void* states, int dtype, int B, int T,
+                int H, int hd,
                 int c, long long rsb, long long rst, long long rsh, long long ksb, long long kst,
                 long long ksh, long long vsb, long long vst, long long vsh, long long lsb,
                 long long lst, long long lsh, long long usb, long long ush, void* stream) {
@@ -818,12 +1129,45 @@ int wkv_chunked(const void* r, const void* k, const void* v, const void* lw, con
   const Strides rs{rsb, rst, rsh}, ks{ksb, kst, ksh}, vs{vsb, vst, vsh}, ls{lsb, lst, lsh};
   const float* s0 = static_cast<const float*>(S0);
   float* sf = static_cast<float*>(S_fin);
+  float* sts = static_cast<float*>(states);
   cudaError_t err;
   if (dtype == F32)
-    err = launch_hd<float>(hd, r, k, v, lw, u, s0, y, sf, B, T, H, c, rs, ks, vs, ls, usb, ush, st);
+    err = launch_hd<float>(hd, r, k, v, lw, u, s0, y, sf, sts, B, T, H, c, rs, ks, vs, ls, usb,
+                           ush, st);
   else if (dtype == BF16)
-    err = launch_hd<__nv_bfloat16>(hd, r, k, v, lw, u, s0, y, sf, B, T, H, c, rs, ks, vs, ls,
-                                   usb, ush, st);
+    err = launch_hd<__nv_bfloat16>(hd, r, k, v, lw, u, s0, y, sf, sts, B, T, H, c, rs, ks, vs,
+                                   ls, usb, ush, st);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// The gradients of wkv_chunked's (y, S_fin) against dy and dS_fin (null for
+// zeros): dr, dk, dv, dlw (B, T, H, hd) in the inputs' dtype, du (B, H, hd)
+// f32 per (batch, head), dS0 (B, H, hd, hd) f32 or null.  r, k, v, lw and
+// dy are (B, T, H, hd) contiguous, u as in wkv_chunked; states is the
+// forward's (B, H, T/c, hd, hd) output and S_fin its final state (read only
+// with dS_fin).  One CTA per (head, batch); H, B <= 65535.
+int wkv_chunked_bwd(const void* r, const void* k, const void* v, const void* lw, const void* u,
+                    const void* dy, const void* states, const void* S_fin, const void* dS_fin,
+                    void* dr, void* dk, void* dv, void* dlw, void* du, void* dS0, int dtype,
+                    int B, int T, int H, int hd, int c, long long usb, long long ush,
+                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (c <= 0 || c > MAX_CHUNK || T % c != 0) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || H <= 0 || T <= 0) return (int)cudaGetLastError();
+  const float* sts = static_cast<const float*>(states);
+  const float* sf = static_cast<const float*>(S_fin);
+  const float* dsf = static_cast<const float*>(dS_fin);
+  float* du_ = static_cast<float*>(du);
+  float* ds0 = static_cast<float*>(dS0);
+  cudaError_t err;
+  if (dtype == F32)
+    err = launch_bwd_hd<float>(hd, r, k, v, lw, u, dy, sts, sf, dsf, dr, dk, dv, dlw, du_, ds0, B,
+                               T, H, c, usb, ush, st);
+  else if (dtype == BF16)
+    err = launch_bwd_hd<__nv_bfloat16>(hd, r, k, v, lw, u, dy, sts, sf, dsf, dr, dk, dv, dlw, du_,
+                                       ds0, B, T, H, c, usb, ush, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

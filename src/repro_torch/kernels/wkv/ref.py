@@ -12,6 +12,26 @@ pairwise decay exponent ``cum[t-1] - cum[s]`` (<= 0) is materialised per
 (t, s, channel), masked strictly lower, so no positive number is ever
 exponentiated; across chunks the state is carried by a Python loop.
 
+:func:`wkv_bwd_plain` is the written form of the backward that the
+hand-written ``wkv_chunked_bwd`` kernel computes (the JAX package has no
+WKV backward: XLA differentiates its jnp scan), chunk by chunk in reverse,
+from each chunk's entry state S and the gradient dS of the state leaving
+it (``cp = cum - lw``, ``tot`` the chunk's last ``cum``)::
+
+    dS_in = diag(e^tot) dS + sum_t (r_t e^cp_t)^T dy_t
+    dr_t  = (dy_t S^T) e^cp_t + sum_{s<t} (dy_t.v_s) k_s e^(cp_t - cum_s)
+            + (dy_t.v_t) u k_t
+    dk_s  = sum_{t>s} (dy_t.v_s) r_t e^(cp_t - cum_s) + (v_s dS^T) e^(tot - cum_s)
+            + (dy_s.v_s) u r_s
+    dv_s  = sum_{t>s} A_ts dy_t + (sum_i r_si u_i k_si) dy_s + (k_s e^(tot - cum_s)) dS
+    du    = sum_t (dy_t.v_t) r_t k_t
+
+The log decay's gradient has a closed form: with ``dr'`` and ``dk'`` the
+parts of ``dr`` and ``dk`` without the bonus, over the whole sequence
+``dlw_j = sum_{t>j} (r dr')_t - sum_{s>=j} (k dk')_s + rowsum(S_fin dS_fin)``
+(each pair s < j < t of a term counted once), one running sum per channel
+that the reverse march carries across chunks.
+
 This module imports nothing of the port's models: the model imports the
 kernel package, never the reverse.
 """
@@ -22,6 +42,11 @@ import torch
 
 #: the JAX model's default chunk length (``repro.models.rwkv.CHUNK``)
 CHUNK = 16
+#: ||kernel - plain|| / ||plain|| per output of the ``wkv_chunked_bwd``
+#: kernel against :func:`wkv_bwd_plain` in float64 on the same inputs, by
+#: dtype: f32, the kernel's per-pair ``ex2.approx`` (2^-22) and f32 sums over
+#: up to 4096 rows; bf16, the gradients rounded to bf16 (2^-8)
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
 def _wkv_chunk(r, k, v, lw, u, S_in):
@@ -84,3 +109,80 @@ def wkv_chunked_ref(r, k, v, lw, u, *, chunk: int = CHUNK) -> torch.Tensor:
     y, _ = wkv_scan_ref(r[:, :, None], k[:, :, None], v[:, :, None], lw[:, :, None], u,
                         chunk=chunk)
     return y[:, :, 0].to(out_dtype)
+
+
+def wkv_bwd_plain(r, k, v, lw, u, dy, *, chunk: int = CHUNK, S0=None, dS_fin=None):
+    """Gradients of :func:`wkv_scan_ref`'s ``(y, S_final)`` against ``dy``
+    (B, T, H, hd) and ``dS_fin`` (B, H, hd, hd; zeros when None), by the
+    formulas of the module docstring, in the inputs' dtype.  Returns ``(dr,
+    dk, dv, dlw, du, dS0)``: du in u's shape ((H, hd): summed over the
+    batch), dS0 the gradient of the starting state (of the zeros when
+    ``S0`` is None)."""
+    B, T, H, hd = r.shape
+    c = min(chunk, T)
+    if c <= 0 or T % c:
+        raise ValueError(f"wkv: sequence length {T} is not a multiple of the chunk {c}")
+    S = torch.zeros((B, H, hd, hd), dtype=r.dtype, device=r.device) if S0 is None else S0
+    states = []  # each chunk's entry state
+    for t0 in range(0, T, c):
+        states.append(S)
+        _, S = _wkv_chunk(r[:, t0:t0 + c], k[:, t0:t0 + c], v[:, t0:t0 + c],
+                          lw[:, t0:t0 + c], u, S)
+    dS = torch.zeros_like(S) if dS_fin is None else dS_fin.to(S.dtype)
+    run = torch.sum(S * dS, dim=-1)  # (B, H, hd): the final state's part of dlw
+    ub = u if u.dim() == 2 else u[:, None]
+    ar = torch.arange(c, device=r.device)
+    below = (ar[:, None] > ar[None, :])[None, :, :, None, None]  # t > s
+    grads = {n: torch.empty_like(r) for n in ("dr", "dk", "dv", "dlw")}
+    du = torch.zeros((B, H, hd), dtype=r.dtype, device=r.device)
+    for n in reversed(range(T // c)):
+        sl = slice(n * c, (n + 1) * c)
+        rr, kk, vv, ll, dd = r[:, sl], k[:, sl], v[:, sl], lw[:, sl], dy[:, sl]
+        S_in = states[n]
+        cum = torch.cumsum(ll, dim=1)
+        cp = cum - ll
+        tot = cum[:, -1]  # (B, H, hd)
+        D = torch.where(below, torch.exp(torch.clamp(cp[:, :, None] - cum[:, None], max=0.0)),
+                        0.0)  # (B, t, s, H, hd)
+        Bm = torch.einsum("bthj,bshj->bhts", dd, vv)  # dy_t . v_s
+        on_diag = torch.diagonal(Bm, dim1=-2, dim2=-1).transpose(1, 2)  # (B, c, H)
+        bonus = torch.sum(rr * ub * kk, dim=-1)  # (B, c, H)
+        A = torch.einsum("bthi,bshi,btshi->bhts", rr, kk, D)
+        kdec = torch.exp(tot[:, None] - cum)
+        drp = (torch.exp(cp) * torch.einsum("bthj,bhij->bthi", dd, S_in)
+               + torch.einsum("bhts,bshi,btshi->bthi", Bm, kk, D))
+        dkp = (torch.einsum("bhts,bthi,btshi->bshi", Bm, rr, D)
+               + kdec * torch.einsum("bshj,bhij->bshi", vv, dS))
+        grads["dr"][:, sl] = drp + on_diag[..., None] * ub * kk
+        grads["dk"][:, sl] = dkp + on_diag[..., None] * ub * rr
+        grads["dv"][:, sl] = (torch.einsum("bhts,bthj->bshj", A, dd) + bonus[..., None] * dd
+                              + torch.einsum("bshi,bhij->bshj", kk * kdec, dS))
+        du = du + torch.einsum("bth,bthi->bhi", on_diag, rr * kk)
+        dS = (torch.exp(tot)[..., None] * dS
+              + torch.einsum("bthi,bthj->bhij", rr * torch.exp(cp), dd))
+        # dlw_t = run + sum_{t'>t in the chunk} (r dr' - k dk')_t' - (k dk')_t
+        x, y = rr * drp, kk * dkp
+        z = x - y
+        after = torch.sum(z, dim=1, keepdim=True) - torch.cumsum(z, dim=1)
+        grads["dlw"][:, sl] = run[:, None] + after - y
+        run = run + torch.sum(z, dim=1)
+    if u.dim() == 2:
+        du = torch.sum(du, dim=0)
+    return grads["dr"], grads["dk"], grads["dv"], grads["dlw"], du, dS
+
+
+def bwd_check_inputs(B, T, H, hd, *, dtype=torch.float32, device="cpu", per_row_u=False,
+                     seed=0):
+    """The seeded inputs of the backward's checks, drawn in f32 on
+    ``device``: r, k, v, dy ~ N(0, 1), the model's decays lw =
+    -exp(N(-1, 0.5)), u ~ 0.3 N(0, 1) of shape (H, hd) (or (B, H, hd) per
+    row), S0 and dS_fin ~ N(0, 1) of shape (B, H, hd, hd).  Returns ``(r, k,
+    v, lw, u, S0, dy, dS_fin)``: the two states in f32 (f64 when ``dtype``
+    is), the rest in ``dtype``."""
+    g = torch.Generator(device).manual_seed(seed)
+    r, k, v, dy = (torch.randn((B, T, H, hd), generator=g, device=device) for _ in range(4))
+    lw = -torch.exp(torch.randn((B, T, H, hd), generator=g, device=device) * 0.5 - 1.0)
+    u = torch.randn((B, H, hd) if per_row_u else (H, hd), generator=g, device=device) * 0.3
+    S0, dS_fin = (torch.randn((B, H, hd, hd), generator=g, device=device) for _ in range(2))
+    sdt = torch.promote_types(dtype, torch.float32)
+    return (*(t.to(dtype) for t in (r, k, v, lw, u)), S0.to(sdt), dy.to(dtype), dS_fin.to(sdt))

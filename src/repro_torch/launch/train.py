@@ -6,6 +6,9 @@ divide ``--batch``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
         --reduced --steps 4 --device cpu
 
+Every family trains (``--arch rwkv6-1.6b``, ``phi3.5-moe-42b-a6.6b``,
+``zamba2-1.2b``, ``llama-3.2-vision-11b``, ``hubert-xlarge``, ...).
+
 Without ``--device`` it runs on the card and raises where there is none.
 ``--mesh production`` (training on a mesh) raises ``NotImplementedError``:
 ROADMAP Queue 1 item 21.

@@ -15,8 +15,9 @@ no cache or decode).  A caller may inject the kernel a family runs:
 ``attention=`` for the local attention of every family but rwkv (its
 prefill's, and the VLM's cross attention), ``wkv=`` for the RWKV scan
 (e.g. their plain versions for a comparison run on the card).  ``loss``
-is the dense family's alone so far; the others raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+serves every family: on the card the attention's backward is the
+hand-written flash backward kernel, the RWKV scan's the WKV backward
+kernel.
 """
 
 from __future__ import annotations
@@ -41,13 +42,6 @@ _FAMILY_MODULES = {
     "hybrid": hybrid,
     "vlm": vision,
     "audio": encoder,
-}
-
-#: family -> the ROADMAP item its loss waits for
-_LOSS_WAITS = {
-    "rwkv": "ROADMAP Queue 1 item 19: its scan on the card is the WKV kernel, which needs a "
-            "hand-written backward",
-    **{family: "ROADMAP Queue 1 item 18" for family in ("moe", "ssm", "hybrid", "vlm", "audio")},
 }
 
 
@@ -84,10 +78,9 @@ class Model:
         return {"attention": self.attention}
 
     def loss(self, params, batch, *, ctx: ParallelContext = LOCAL):
-        """The training loss of ``batch``; the dense family's alone so far."""
-        if self.cfg.family in _LOSS_WAITS:
-            raise NotImplementedError(f"{self.cfg.name}: the {self.cfg.family} family's loss "
-                                      f"is not ported yet ({_LOSS_WAITS[self.cfg.family]})")
+        """The training loss of ``batch``: ``tokens`` and ``labels`` (audio:
+        ``frames`` and ``labels``), ``vision_emb`` for the vlm family, an
+        optional ``mask``."""
         return self.module.loss_fn(self.cfg, params, batch, ctx=ctx, **self._kernels())
 
     def logits(self, params, batch, *, ctx: ParallelContext = LOCAL):

@@ -7,8 +7,10 @@ bidirectional (``causal=False``; at hubert-xlarge's head dim of 80 the
 flash kernel's padded tensor-core route on the card), rotary positions
 stand in for HuBERT's conv positional embedding, and ``head`` maps d_model
 to the 504 cluster logits (stored ``(V, d)`` here, ``(d, V)`` in JAX).
-Encoder-only: no cache and no decode step.  The loss waits for the
-training slice.
+Encoder-only: no cache and no decode step.  The loss is the masked
+cross-entropy of the cluster logits over the masked frames (every frame
+without a mask); in training each block is recomputed per ``cfg.remat`` as
+the dense decoder's (``transformer._remat``).
 """
 
 from __future__ import annotations
@@ -50,9 +52,21 @@ def hidden_states(cfg: ModelConfig, params: Params, frames: torch.Tensor,
         x = torch.where(mask[..., None] > 0, params["mask_emb"].to(x.dtype), x)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    block = T._remat(cfg, T.decoder_block, x)
     for lp in params["layers"]:
-        x = T.decoder_block(cfg, lp, x, positions, ctx, attention)
+        x = block(cfg, lp, x, positions, ctx, attention)
     return L.apply_norm(cfg, params["norm_f"], x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, ctx: ParallelContext = LOCAL,
+            attention: AttentionFn | None = None) -> torch.Tensor:
+    """Masked cluster prediction: ``frames`` with the ``mask``ed ones
+    replaced by ``mask_emb``, the cross-entropy of ``head``'s logits
+    against ``labels`` over the masked frames (over every frame when the
+    batch has no mask)."""
+    mask = batch.get("mask")
+    x = hidden_states(cfg, params, batch["frames"], mask, ctx=ctx, attention=attention)
+    return L.cross_entropy(F.linear(x, params["head"].to(x.dtype)), batch["labels"], mask)
 
 
 def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor, *,

@@ -18,13 +18,18 @@ prefill and decode write it in place.  As in JAX, prefill runs its mamba
 layers without the context (local scans that keep their states): only the
 shared attention takes the ring, and only ``logits`` runs the conv halo and
 the state passing.  The local attention (the flash kernel on the card) is
-injectable (``attention=``).
+injectable (``attention=``).  In training, as in JAX, each mamba block is
+recomputed in the backward (the whole block) whenever ``cfg.remat`` is not
+``"none"``; the shared block is not.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import torch_dtype
@@ -110,12 +115,15 @@ def hidden_states(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     x = emb
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
+    mb = functools.partial(ssm.mamba_block, ctx=ctx)
+    if cfg.remat != "none" and emb.requires_grad:  # JAX: jax.checkpoint of each mamba block
+        mb = functools.partial(checkpoint, mb, use_reentrant=False)
     for gp in params["groups"]:
         for lp in gp:
-            x = ssm.mamba_block(cfg, lp, x, ctx=ctx)
+            x = mb(cfg, lp, x)
         x = shared_attn_block(cfg, params["shared"], x, emb, positions, ctx, attention)
     for lp in params.get("tail", []):
-        x = ssm.mamba_block(cfg, lp, x, ctx=ctx)
+        x = mb(cfg, lp, x)
     return L.apply_norm(cfg, params["norm_f"], x)
 
 
@@ -127,6 +135,15 @@ def logits_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
               ctx: ParallelContext = LOCAL,
               attention: AttentionFn | None = None) -> torch.Tensor:
     return _lm_head(params, hidden_states(cfg, params, tokens, ctx=ctx, attention=attention))
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, ctx: ParallelContext = LOCAL,
+            attention: AttentionFn | None = None) -> torch.Tensor:
+    """The LM loss of ``batch`` (``tokens``, ``labels``, optional ``mask``)
+    through :func:`~repro_torch.models.layers.chunked_lm_loss`."""
+    x = hidden_states(cfg, params, batch["tokens"], ctx=ctx, attention=attention)
+    return L.chunked_lm_loss(x, params["lm_head"], batch["labels"], cfg.logits_chunk,
+                             mask=batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

@@ -35,8 +35,11 @@ zero row), and the gather reads the clamped rank before masking (JAX
 clamps an out-of-range index, torch raises).
 
 Layers are a list of per-layer dicts looped in Python; the KV cache is the
-dense decoder's, written in place.  ``loss_fn`` waits for training (ROADMAP
-Queue 1 item 14); ``fsdp_experts`` and ``remat`` select nothing here.
+dense decoder's, written in place.  :func:`loss_fn` adds the router's
+load-balance loss, averaged over the layers, to the LM loss; in training
+each block (attention and MoE FFN) is recomputed per ``cfg.remat`` as the
+dense decoder's (``transformer._remat``).  ``fsdp_experts`` selects nothing
+here.
 """
 
 from __future__ import annotations
@@ -324,14 +327,32 @@ def hidden_states(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
     x = T._embed(cfg, params, tokens)
     positions = T._positions(tokens)
     aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    blk = T._remat(cfg, _block, x)
     for lp in params["layers"]:
-        h = L.apply_norm(cfg, lp["norm_attn"], x)
-        x = x + L.self_attention(cfg, lp["attn"], h, positions, ctx=ctx, attention=attention)
-        h = L.apply_norm(cfg, lp["norm_mlp"], x)
-        y, aux = apply_moe_ffn(cfg, lp["moe"], h, ctx)
-        x = x + y
+        x, aux = blk(cfg, lp, x, positions, ctx, attention)
         aux_sum = aux_sum + aux
     return L.apply_norm(cfg, params["norm_f"], x), aux_sum / cfg.n_layers
+
+
+def _block(cfg: ModelConfig, lp: Params, x: torch.Tensor, positions: torch.Tensor,
+           ctx: ParallelContext, attention: AttentionFn | None):
+    """One decoder layer with the MoE FFN: (x, the layer's router aux loss)."""
+    h = L.apply_norm(cfg, lp["norm_attn"], x)
+    x = x + L.self_attention(cfg, lp["attn"], h, positions, ctx=ctx, attention=attention)
+    h = L.apply_norm(cfg, lp["norm_mlp"], x)
+    y, aux = apply_moe_ffn(cfg, lp["moe"], h, ctx)
+    return x + y, aux
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, ctx: ParallelContext = LOCAL,
+            attention: AttentionFn | None = None) -> torch.Tensor:
+    """The LM loss of ``batch`` (``tokens``, ``labels``, optional ``mask``)
+    plus ``router_aux_coef`` times the router's load-balance loss averaged
+    over the layers, as JAX's."""
+    x, aux = hidden_states(cfg, params, batch["tokens"], ctx=ctx, attention=attention)
+    ce = L.chunked_lm_loss(x, T.output_embedding(cfg, params), batch["labels"],
+                           cfg.logits_chunk, mask=batch.get("mask"))
+    return ce + cfg.router_aux_coef * aux
 
 
 def logits_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

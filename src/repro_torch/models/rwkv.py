@@ -25,16 +25,23 @@ into the batch of one call: once from a zero state for the shard's affine
 operator (:func:`wkv_segment_operator`), then from the incoming state that
 :func:`repro_torch.core.ring.state_passing` composes along the model axis.
 As in JAX, that branch returns no final state, and prefill and decode call
-the time mix without the context, so they scan locally.  The loss waits
-for the training slice.
+the time mix without the context, so they scan locally.
+
+Training: :func:`loss_fn` through ``layers.chunked_lm_loss``; on the card
+the scan's backward is the hand-written ``wkv_chunked_bwd`` kernel
+(``WkvChunkedFn``).  As in JAX, every block is recomputed in the backward
+whenever ``cfg.remat`` is not ``"none"`` (the whole block, whatever the
+policy's name: ``torch.utils.checkpoint``, non-reentrant).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.compat import torch_dtype
@@ -225,9 +232,22 @@ def _lm_head(params: Params, x: torch.Tensor) -> torch.Tensor:
 def hidden_states(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,
                   ctx: ParallelContext = LOCAL, wkv: WkvFn | None = None) -> torch.Tensor:
     x = _embed(cfg, params, tokens)
+    blk = functools.partial(block, ctx=ctx, wkv=wkv)
+    if cfg.remat != "none" and x.requires_grad:  # JAX: jax.checkpoint of the whole block
+        blk = functools.partial(checkpoint, blk, use_reentrant=False)
     for lp in params["layers"]:
-        x = block(cfg, lp, x, ctx=ctx, wkv=wkv)
+        x = blk(cfg, lp, x)
     return L.apply_norm(cfg, params["norm_f"], x)
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, ctx: ParallelContext = LOCAL,
+            wkv: WkvFn | None = None) -> torch.Tensor:
+    """The LM loss of ``batch`` (``tokens``, ``labels``, optional ``mask``)
+    through :func:`~repro_torch.models.layers.chunked_lm_loss` with
+    ``cfg.logits_chunk``."""
+    x = hidden_states(cfg, params, batch["tokens"], ctx=ctx, wkv=wkv)
+    return L.chunked_lm_loss(x, params["lm_head"], batch["labels"], cfg.logits_chunk,
+                             mask=batch.get("mask"))
 
 
 def logits_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor, *,

@@ -15,7 +15,9 @@ Hkv, hd)`` computed once at prefill, ``pos``); prefill and decode write it
 in place.  Prefill's self and cross attention are the local attention (the
 flash kernel on the card, injectable as ``attention=``); decode's cross
 attention is the plain version over the cached vision KV, as JAX's
-``attention_ref``.
+``attention_ref``.  In training the self layers are recomputed per
+``cfg.remat`` as the dense decoder's (``transformer._remat``), the cross
+layers are not, as in JAX.
 """
 
 from __future__ import annotations
@@ -89,9 +91,10 @@ def hidden_states(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     vis = _project_vision(params, vision_emb, x.dtype)
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
+    self_block = T._remat(cfg, T.decoder_block, x)
     for sp, cp in zip(params["self_groups"], params["cross"]):
         for lp in sp:
-            x = T.decoder_block(cfg, lp, x, positions, ctx, attention)
+            x = self_block(cfg, lp, x, positions, ctx, attention)
         x = _cross_block(cfg, cp, x, vis, attention)
     return L.apply_norm(cfg, params["norm_f"], x)
 
@@ -105,6 +108,16 @@ def logits_fn(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
               attention: AttentionFn | None = None) -> torch.Tensor:
     return _lm_head(params, hidden_states(cfg, params, tokens, vision_emb, ctx=ctx,
                                           attention=attention))
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict, *, ctx: ParallelContext = LOCAL,
+            attention: AttentionFn | None = None) -> torch.Tensor:
+    """The LM loss of ``batch`` (``tokens``, ``vision_emb``, ``labels``,
+    optional ``mask``) through :func:`~repro_torch.models.layers.chunked_lm_loss`."""
+    x = hidden_states(cfg, params, batch["tokens"], batch["vision_emb"], ctx=ctx,
+                      attention=attention)
+    return L.chunked_lm_loss(x, params["lm_head"], batch["labels"], cfg.logits_chunk,
+                             mask=batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

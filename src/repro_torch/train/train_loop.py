@@ -3,8 +3,11 @@ port of ``src/repro/train/train_loop.py``).
 
 The JAX step is one jitted program; the port's runs eagerly: the loss's
 backward through autograd (on the card the attention's backward is the
-hand-written ``flash_attention_bwd`` kernel), then the f32 AdamW update in
-place under ``torch.no_grad``.  Capturing the step as a CUDA graph is
+hand-written ``flash_attention_bwd`` kernel, the RWKV scan's
+``wkv_chunked_bwd``), then the f32 AdamW update in place under
+``torch.no_grad``.  Every family trains; a batch carries the family's
+keys (``SyntheticLM``: audio ``frames`` and ``mask``, vlm ``vision_emb``),
+and the microbatch split slices each of them.  Capturing the step as a CUDA graph is
 ROADMAP Queue 1 item 22.  Training on a mesh (data-parallel, ZeRO-1,
 tensor-parallel on stacked ranks) is item 21: a context with a mesh
 raises.

@@ -1,14 +1,20 @@
 """Training on the card (``cuda``-marked; skipped where there is no CUDA
 device): the flash-attention backward kernel against autograd through the
-plain attention, the refusal of gradients by the kernel wrappers that have
-no backward, and a reduced stablelm-1.6b train step whose attention
-backward is the kernel.  No JAX here: the parity against the JAX package
-is the CPU files' (``tests/test_torch_train_*.py``).
+plain attention, the WKV backward kernel ``wkv_chunked_bwd`` against its
+plain version ``wkv_bwd_plain`` (bitwise repeatable, and what it refuses),
+the refusal of gradients by the kernel wrappers that have no backward, and
+reduced stablelm-1.6b and rwkv6-1.6b train steps whose backward runs the
+kernels.  No JAX here: the parity against the JAX package is the CPU
+files' (``tests/test_torch_train_*.py``, ``tests/test_torch_kernels_wkv_bwd.py``).
 
 Tolerances, stated: ``dq``, ``dk``, ``dv`` within relative L2 2e-2 (bf16:
 inputs and outputs round to bf16, 2^-8) and 1e-4 (f32: sums in another
 order) of autograd through ``attention_plain`` in f32 on the same inputs;
 the forward's ``lse`` within 1e-3 of ``logsumexp`` of the plain scores.
+The WKV backward's six outputs within relative L2 ``WKV_BWD_TOL`` of
+``wkv_bwd_plain`` in float64 on the same inputs (f32: the kernel's
+per-pair exponentials by ``ex2.approx`` and f32 sums; bf16: the gradients
+rounded to bf16).
 """
 
 import math
@@ -23,12 +29,15 @@ from repro_torch.kernels.flash_attention import attention, attention_plain
 from repro_torch.kernels.flash_attention.flash import FlashAttentionFn, flash_attention
 from repro_torch.kernels.pack.pack import copy_convert
 from repro_torch.kernels.stencil27.stencil27 import stencil27
-from repro_torch.kernels.wkv.wkv import wkv_chunked
+from repro_torch.kernels.wkv import wkv, wkv_bwd_plain, wkv_plain
+from repro_torch.kernels.wkv.ref import BWD_TOL as WKV_BWD_TOL, bwd_check_inputs
+from repro_torch.kernels.wkv.wkv import WkvChunkedFn, wkv_chunked, wkv_chunked_bwd
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.models import build_model
 from repro_torch.train.train_loop import init_state, make_train_step
 
 REL_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+WKV_NAMES = ("dr", "dk", "dv", "dlw", "du", "dS0")
 
 
 @pytest.fixture
@@ -106,9 +115,14 @@ def test_flash_backward_is_bitwise_repeatable(cuda):
 
 @pytest.mark.cuda
 def test_wrappers_without_backward_refuse_grad(cuda):
+    """The bare kernel wrappers refuse a gradient; the WKV scan's gradient
+    goes through ``WkvChunkedFn`` (``ops.wkv``), whose output carries it."""
     x = torch.randn((1, 8, 2, 16), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(NotImplementedError, match="WkvChunkedFn"):
         wkv_chunked(x, x, x, -torch.ones_like(x), torch.zeros((2, 16), device=cuda))
+    y, S = wkv(x, x, x, -torch.ones_like(x), torch.zeros((2, 16), device=cuda), chunk=8)
+    assert isinstance(y.grad_fn, WkvChunkedFn._backward_cls) and S.grad_fn is y.grad_fn
+    assert torch.autograd.grad(y.sum() + S.sum(), x)[0].abs().sum() > 0
     blk = torch.randn((1, 6, 6, 6), device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="item 21"):
         copy_convert(blk, torch.empty((1, 6, 6, 6), device=cuda))
@@ -145,3 +159,110 @@ def test_train_step_runs_the_backward_kernel(cuda):
             assert not _build.LAUNCHES
     assert math.isfinite(losses["kernel"])
     assert abs(losses["kernel"] - losses["plain"]) <= 2e-2 * abs(losses["plain"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,hd,chunk,dtype,per_row_u,with_state", [
+    (1, 1024, 4, 64, 64, "float32", False, False),  # rwkv6-1.6b's head size and chunk
+    (2, 256, 4, 8, 16, "float32", False, True),
+    (2, 256, 4, 16, 16, "float32", True, True),     # a per-row bonus
+    (2, 256, 4, 32, 16, "float32", False, True),
+    (3, 40, 2, 64, 64, "float32", False, True),     # T = c = 40: one ragged chunk
+    (2, 128, 4, 64, 64, "bfloat16", False, True),
+])
+def test_wkv_backward_matches_plain(cuda, B, T, H, hd, chunk, dtype, per_row_u, with_state):
+    td = getattr(torch, dtype)
+    r, k, v, lw, u, S0, dy, dS_fin = bwd_check_inputs(B, T, H, hd, dtype=td, device=cuda,
+                                                      per_row_u=per_row_u)
+    S0, dS_fin = (S0, dS_fin) if with_state else (None, None)
+    leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
+    s0 = None if S0 is None else S0.clone().requires_grad_()
+    _build.reset_launches()
+    y, S = wkv(*leaves, chunk=chunk, S0=s0)  # grad enabled: WkvChunkedFn
+    obj = (y.float() * dy.float()).sum() + (0 if dS_fin is None else (S * dS_fin).sum())
+    got = torch.autograd.grad(obj, leaves + ([] if s0 is None else [s0]))
+    assert dict(_build.LAUNCHES) == {"wkv_chunked": 1, "wkv_chunked_bwd": 1}
+    want = wkv_bwd_plain(*(t.double() for t in (r, k, v, lw, u, dy)), chunk=chunk,
+                         S0=None if S0 is None else S0.double(),
+                         dS_fin=None if dS_fin is None else dS_fin.double())
+    for name, g, w in zip(WKV_NAMES, got, want):
+        assert g.dtype == (torch.float32 if name == "dS0" else td), name
+        assert torch.isfinite(g.float()).all(), name
+        assert _rel(g.float(), w) <= WKV_BWD_TOL[dtype], (name, _rel(g.float(), w))
+
+
+@pytest.mark.cuda
+def test_wkv_backward_is_bitwise_repeatable(cuda):
+    """Three calls on the same inputs give the same bits: every sum in a
+    fixed order, du summed over the batch in order."""
+    r, k, v, lw, u, S0, dy, dS_fin = bwd_check_inputs(2, 512, 8, 64, seed=2, device=cuda)
+    states = torch.empty((2, 8, 8, 64, 64), device=cuda)
+    _, S_fin = wkv_chunked(r, k, v, lw, u, chunk=64, S0=S0, states=states)
+    first, *more = (wkv_chunked_bwd(r, k, v, lw, u, dy, states, chunk=64, S_fin=S_fin,
+                                    dS_fin=dS_fin, want_dS0=True) for _ in range(3))
+    assert all(torch.equal(a, b) for again in more for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_wkv_states_leave_the_forward_unchanged(cuda):
+    """The chunk-entry states the training forward writes: S0 first, each
+    the plain scan's state at its chunk's start; y and the final state
+    bitwise the serving call's (no states), on both routes."""
+    r, k, v, lw, u, S0, _, _ = bwd_check_inputs(2, 96, 4, 32, seed=3, device=cuda)
+    for chunk in (32, 1):
+        n = 96 // chunk
+        states = torch.empty((2, 4, n, 32, 32), device=cuda)
+        y, S = wkv_chunked(r, k, v, lw, u, chunk=chunk, S0=S0, states=states)
+        y0, S_0 = wkv_chunked(r, k, v, lw, u, chunk=chunk, S0=S0)
+        assert torch.equal(y, y0) and torch.equal(S, S_0)
+        assert torch.equal(states[:, :, 0], S0)
+        for i in (1, n - 1):
+            _, want = wkv_plain(r[:, :i * chunk].double(), k[:, :i * chunk].double(),
+                                v[:, :i * chunk].double(), lw[:, :i * chunk].double(),
+                                u.double(), S0=S0.double(), chunk=chunk)
+            assert (states[:, :, i].double() - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_wkv_backward_refuses_what_it_does_not_take(cuda):
+    r, k, v, lw, u, S0, dy, dS_fin = bwd_check_inputs(1, 64, 2, 64, device=cuda)
+    states = torch.empty((1, 2, 1, 64, 64), device=cuda)
+    with pytest.raises(ValueError, match="head size"):
+        wkv_chunked_bwd(*(t[..., :48] for t in (r, k, v, lw, u, dy)), states, chunk=64)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        wkv_chunked_bwd(r[:, :48], k[:, :48], v[:, :48], lw[:, :48], u, dy[:, :48],
+                        states, chunk=32)
+    with pytest.raises(ValueError, match="states"):
+        wkv_chunked_bwd(r, k, v, lw, u, dy, states[:, :1, :, :32], chunk=64)
+    with pytest.raises(ValueError, match="S_fin"):
+        wkv_chunked_bwd(r, k, v, lw, u, dy, states, chunk=64, dS_fin=dS_fin)
+    with pytest.raises(TypeError, match="one dtype"):
+        wkv_chunked_bwd(r, k, v, lw, u, dy.bfloat16(), states, chunk=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        wkv_chunked_bwd(r, k, v, lw, u.cpu(), dy, states, chunk=64)
+
+
+@pytest.mark.cuda
+def test_rwkv_train_step_runs_the_wkv_backward(cuda):
+    """A reduced rwkv6-1.6b step on the card (bf16, the WKV forward and
+    backward kernels; remat, so each layer's forward runs twice), its loss
+    against the same step with the plain scan."""
+    cfg = get_config("rwkv6-1.6b").reduced().with_updates(remat="full")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in SyntheticLM(cfg, 4, 128, seed=0).batch_at(0).items()}
+    losses = {}
+    for name, scan in (("kernel", None), ("plain", wkv_plain)):
+        model = build_model(cfg, cuda, wkv=scan)
+        state = init_state(model, opt, 0)
+        _build.reset_launches()
+        state, met = make_train_step(model, opt, microbatches=2)(state, batch)
+        losses[name] = met["loss"].item()
+        if name == "kernel":
+            n = cfg.n_layers * 2
+            assert _build.LAUNCHES["wkv_chunked_bwd"] == n
+            assert _build.LAUNCHES["wkv_chunked"] == 2 * n  # the forward and its recompute
+        else:
+            assert not _build.LAUNCHES
+    assert math.isfinite(losses["kernel"])
+    assert abs(losses["kernel"] - losses["plain"]) <= 1e-3 * abs(losses["plain"])

@@ -144,19 +144,6 @@ def test_cross_entropy_masks_and_guards_an_empty_mask():
         np.testing.assert_allclose(got.item(), float(want), rtol=1e-6, atol=1e-7)
 
 
-def test_loss_of_other_families_raises():
-    """Only the dense family's loss is ported: the others name the ROADMAP
-    item they wait for instead of returning a loss."""
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    for name, item in (("rwkv6-1.6b", "item 19"), ("phi3.5-moe-42b-a6.6b", "item 18"),
-                       ("zamba2-1.2b", "item 18"), ("hubert-xlarge", "item 18"),
-                       ("llama-3.2-vision-11b", "item 18")):
-        model = build_model(get_config(name).reduced(), "cpu")
-        with pytest.raises(NotImplementedError, match=item):
-            model.loss(model.init("meta"), batch)
-
-
 @pytest.mark.parametrize("name", sorted(j_all_configs()))
 def test_config_methods_equal_jax(name):
     """The methods the port's config gained with training: equal to JAX's

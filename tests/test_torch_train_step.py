@@ -166,11 +166,11 @@ def test_refuse_grad_check_on_cpu_tensors():
     only while grad is enabled and an input requires grad."""
     x = torch.zeros(3, requires_grad=True)
     y = torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="no backward kernel.*item 19"):
-        _build.refuse_grad("wkv_chunked", y, x, why="ROADMAP Queue 1 item 19")
-    _build.refuse_grad("wkv_chunked", y, y, why="-")
+    with pytest.raises(NotImplementedError, match="no backward kernel.*item 21"):
+        _build.refuse_grad("copy_convert", y, x, why="ROADMAP Queue 1 item 21")
+    _build.refuse_grad("copy_convert", y, y, why="-")
     with torch.no_grad():
-        _build.refuse_grad("wkv_chunked", x, why="-")
+        _build.refuse_grad("copy_convert", x, why="-")
 
 
 def test_microbatch_grads_accumulate_in_f32(monkeypatch):

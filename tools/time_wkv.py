@@ -21,7 +21,11 @@ Inputs are the model's: r, k, v normal, lw = -exp(N(-1, 0.5)), u normal x
   synchronize between them;
 
 beside ``err``, the largest difference from ``wkv_plain`` on the same
-inputs (y and final state).  The timing helpers are those of
+inputs (y and final state).  ``digests`` holds a SHA-256 of the bytes of y
+and the final state at each of ``chip_smoke.py`` phase C's serving shapes
+(prefill T of 5, 17, 37, 64, 128 and 2048, bf16 at 2048, decode at four
+slots with a state), so two versions' serving outputs can be compared bit
+for bit.  The timing helpers are those of
 ``tools/time_copy_convert.py`` and ``chip_smoke.py``, taken from the
 checkout that holds this script.  Run it from a checkout's root on a
 machine with a card::
@@ -36,6 +40,7 @@ JSON line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import pathlib
 import subprocess
@@ -87,10 +92,21 @@ def main() -> int:
                            batched_ms=time_ms_batched(torch, call),
                            device_ms=device_ms(torch, call, lambda: None),
                            host_us=host_us(torch, call), err=err)
+    digests = {}
+    for name, B, T, dtype, state in (
+            *((f"prefill T={T}", 1, T, torch.float32, False) for T in (5, 17, 37, 64, 128, 2048)),
+            ("prefill T=2048 bf16", 1, 2048, torch.bfloat16, False),
+            ("decode (4, 1) + state", 4, 1, torch.float32, True)):
+        args_, S0 = inputs(B, T, state)
+        y, S = wkv_chunked(*(a.to(dtype) for a in args_), chunk=chunk, S0=S0)
+        h = hashlib.sha256()
+        for t in (y, S):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        digests[name] = h.hexdigest()[:16]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()
     print(json.dumps({"label": args.label, "card": smi[0] if smi else "not read",
-                      "torch": torch.__version__, "cases": cases}))
+                      "torch": torch.__version__, "cases": cases, "digests": digests}))
     return 0
 
 

@@ -23,14 +23,16 @@
   sequence a microbatch, f32 gradient accumulators).  Launch counts are
   zeroed just before and read just after: ``flash_attention`` must launch
   layers x microbatches times a step, ``flash_attention_bwd`` three times
-  that (its pre-pass, the one pass and dQ's rounding).  Prints ms a step (median of steps 2-5), tokens/s, the step's share
-  of its floor (``model_flops_per_token(4096)`` x 8192 tokens over 989
-  TFLOP/s dense bf16), ``torch.cuda.max_memory_allocated``, the device idle
-  share of one step (``core/profiling.py``) and the flash forward and
-  backward device ms a step.  Every loss must be finite, and one
-  microbatch's gradients on a fresh state (``torch.autograd.grad`` of
-  ``Model.loss``) must have a finite, non-zero norm on every parameter
-  leaf, ``wq``/``wk``/``wv`` included.
+  that (its pre-pass, the one pass and dQ's rounding).  Prints ms a step
+  (median of steps 2-5), tokens/s, the step's share of its floor
+  (``model_flops_per_token(4096)`` x 8192 tokens over 989 TFLOP/s dense
+  bf16), ``torch.cuda.max_memory_allocated``, the device idle share of one
+  step (``core/profiling.py``) and the flash forward and backward device ms
+  a step.  Every loss must be finite, and one microbatch's gradients on a
+  fresh state after one step (``torch.autograd.grad`` of ``Model.loss``)
+  must have a finite, non-zero norm on every parameter leaf,
+  ``wq``/``wk``/``wv`` included.  :func:`train_full_width` does the same
+  for rwkv6-1.6b in phase M (``tools/train_families_lm.py``).
 * L3, restart on the card: stablelm-1.6b's width with 2 layers, 6 steps,
   a checkpoint every 2 (5.1 GB each, the latest one kept, in a temporary
   directory under ``build/`` removed after), an
@@ -38,10 +40,13 @@
   logs 6 losses), finishes, and its losses are within 1e-3 relative of an
   uninterrupted run's; whether they and the final checksum are bitwise
   equal is printed (the flash backward adds dQ in a fixed order).
-* L4, rwkv6-1.6b refuses: ``Model.loss`` raises ``NotImplementedError``,
-  and ``logits`` with parameters that require grad raises in the
-  ``wkv_chunked`` wrapper, instead of returning a graph without the WKV
-  edges.
+* L4, the kernels still without a backward refuse a gradient: the pack
+  kernels ``copy_convert`` and ``gather_pack``, ``stencil27``, and the bare
+  ``flash_attention`` wrapper (its backward runs through
+  ``FlashAttentionFn``) each raise ``NotImplementedError`` on an input that
+  requires grad, instead of returning an output without a graph; each
+  runs under ``torch.no_grad``.  (rwkv trains: the WKV scan's backward is
+  ``wkv_chunked_bwd``, phase M.)
 
 ``chip_smoke.py`` calls :func:`train_phase` last, after phase G; alone::
 
@@ -90,6 +95,11 @@ PATH_SHAPE = (1, 4096, 32, 32, 64)
 #: the path's shape and llama3-8b's GQA, many kv tiles adding into each
 #: query tile's dQ
 REPEAT_SHAPES = (PATH_SHAPE, (1, 2048, 32, 8, 128))
+#: the flash kernels' names in a trace: the forward (either route's kernel)
+#: and the backward's (the bf16 route's three, the f32 route's)
+FLASH_KERNELS = {"fwd": ("flash_tc_kernel", "flash_kernel"),
+                 "bwd": ("bwd_prep_kernel", "bwd_tc_kernel", "bwd_finish_kernel", "delta_kernel",
+                         "dkdv_kernel", "dq_kernel")}
 
 
 class PhaseFailure(RuntimeError):
@@ -310,33 +320,54 @@ def _fwd_bwd_times(torch, F, FlashAttentionFn, q, k, v, dout, causal: bool) -> d
             "sdpa_fwd_bwd_ms": statistics.median(lib)}
 
 
-def _flash_device_ms(trace: dict) -> dict:
-    """Device ms a step of the flash forward (either route's kernel) and of
-    the backward's three kernels, from a ``device_breakdown`` trace."""
-    fwd = ("flash_tc_kernel", "flash_kernel")
-    bwd = ("bwd_prep_kernel", "bwd_tc_kernel", "bwd_finish_kernel", "delta_kernel", "dkdv_kernel",
-           "dq_kernel")
-    out = {"fwd_ms": 0.0, "bwd_ms": 0.0, "fwd_launches": 0.0, "bwd_launches": 0.0}
-    for k in trace["kernels"]:
-        for tag, names in (("fwd", fwd), ("bwd", bwd)):
-            if any(n in k["name"] for n in names):
-                out[f"{tag}_ms"] += k["us_per_cycle"] / 1e3
-                out[f"{tag}_launches"] += k["launches_per_cycle"]
+def kernel_device_ms(trace: dict, groups: dict) -> dict:
+    """Device ms and launches a step (``{tag}_ms``, ``{tag}_launches``) of
+    each group of kernel names (substrings), from a ``device_breakdown``
+    trace."""
+    out = {}
+    for tag, names in groups.items():
+        ks = [k for k in trace["kernels"] if any(n in k["name"] for n in names)]
+        out[f"{tag}_ms"] = sum(k["us_per_cycle"] for k in ks) / 1e3
+        out[f"{tag}_launches"] = sum(k["launches_per_cycle"] for k in ks)
     return out
 
 
-def full_width_training(torch, dev, fails: list) -> dict:
-    """L2; appends to ``fails``."""
+def grad_norms(torch, model, params, batch) -> tuple[dict, dict]:
+    """Each parameter leaf's gradient norm (by path) of ``Model.loss`` on
+    ``batch``, and for each MoE expert stack ``(slots, in, out)`` the number
+    of slots whose gradient is zero (experts that received no token)."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    leaves = [(path, p.requires_grad_(True)) for path, p in tree_leaves(params)]
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, [p for _, p in leaves])
+    norms, slots_zero = {}, {}
+    for (path, _), g in zip(leaves, grads):
+        key = "/".join(map(str, path))
+        norms[key] = g.float().norm().item()
+        if "/moe/w_" in key:
+            slots_zero[key] = int((g.flatten(1).float().norm(dim=1) == 0).sum())
+    del grads, loss
+    return norms, slots_zero
+
+
+def train_full_width(torch, dev, fails: list, *, tag: str, config: str, launches_a_step,
+                     layer0: tuple, groups: dict) -> dict:
+    """Trains ``config`` at full width and depth through the port's
+    ``Trainer`` (L2, and phase M's M2); appends to ``fails``.
+    ``launches_a_step(cfg, microbatches)`` gives the launches of each kernel
+    a step; ``layer0`` names layer 0's leaves whose gradient norms are
+    printed; ``groups`` the kernels (name substrings) whose device ms a step
+    a traced step reports."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
     from repro_torch.core.profiling import device_breakdown
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.kernels import _build
     from repro_torch.models import build_model
-    from repro_torch.train.optimizer import tree_leaves
     from repro_torch.train.train_loop import Trainer, init_state, make_train_step
 
-    cfg = get_config(STABLELM)
+    cfg = get_config(config)
     model = build_model(cfg, dev)
     opt = OptimizerConfig()
     run_cfg = RunConfig(model=cfg, shape=ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
@@ -344,7 +375,7 @@ def full_width_training(torch, dev, fails: list) -> dict:
     trainer = Trainer(model, run_cfg)
     micro = trainer.microbatches
     if micro != cfg.train_microbatches:
-        fails.append(f"L2: the Trainer took {micro} microbatches, the config says "
+        fails.append(f"{tag}: the Trainer took {micro} microbatches, the config says "
                      f"{cfg.train_microbatches}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -359,53 +390,64 @@ def full_width_training(torch, dev, fails: list) -> dict:
     flops = cfg.model_flops_per_token(TRAIN_SEQ) * tokens
     step_ms = statistics.median(result.step_seconds[1:5]) * 1e3
     floor_ms = flops / BF16_FLOP_PER_S * 1e3
-    want = cfg.n_layers * micro * TRAIN_STEPS  # calls of each; the backward launches 3 a call
+    want = {k: n * TRAIN_STEPS for k, n in launches_a_step(cfg, micro).items()}
     out = dict(
-        config=STABLELM, params=cfg.param_count(), seq=TRAIN_SEQ, batch=TRAIN_BATCH,
-        microbatches=micro, steps=TRAIN_STEPS, losses=result.losses,
+        config=config, params=cfg.param_count(), seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+        microbatches=micro, steps=TRAIN_STEPS, remat=cfg.remat, losses=result.losses,
         step_ms_each=[s * 1e3 for s in result.step_seconds], step_ms=step_ms,
         tokens_per_s=tokens / (step_ms / 1e3), model_flops=flops, floor_ms=floor_ms,
         floor_share=floor_ms / step_ms, max_memory_allocated=peak, wall_s=wall,
         launches=launches, launches_want=want,
+        launches_a_step={k: launches.get(k, 0) / TRAIN_STEPS for k in want},
         timing="host clock around each Trainer step, ending with the loss read back; "
                "step_ms the median of steps 2-5 (1-based)")
     if not all(math.isfinite(x) for x in result.losses) or len(result.losses) != TRAIN_STEPS:
-        fails.append(f"L2: losses {result.losses}")
-    if (launches.get("flash_attention") != want
-            or launches.get("flash_attention_bwd") != 3 * want):
-        fails.append(f"L2: launches {launches}, want {want} forward and {3 * want} backward "
-                     f"(three a call)")
-    print(f"L2 stablelm-1.6b Trainer, 6 steps: {json.dumps(out)}", flush=True)
+        fails.append(f"{tag}: losses {result.losses}")
+    if any(launches.get(k, 0) != n for k, n in want.items()):
+        fails.append(f"{tag}: launches {launches}, want {want}")
+    print(f"{tag} {config} Trainer, {TRAIN_STEPS} steps: {json.dumps(out)}", flush=True)
+    del trainer, result
 
-    # one fresh state: every leaf's gradient, and one step's device trace
+    # one fresh state and one step (which moves a leaf with a zero init, as
+    # rwkv's w_lora_b, off it), then every leaf's gradient on one
+    # microbatch, and one more step's device trace
     state = init_state(model, opt, run_cfg.seed)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(0).items()}
-    leaves = [(path, p.requires_grad_(True)) for path, p in tree_leaves(state["params"])]
-    loss = model.loss(state["params"], {k: v[:1] for k, v in batch.items()})
-    grads = torch.autograd.grad(loss, [p for _, p in leaves])
-    norms = {"/".join(map(str, path)): g.float().norm().item()
-             for (path, _), g in zip(leaves, grads)}
-    del grads, loss
+    step = make_train_step(model, opt, microbatches=micro)
+    state, _ = step(state, batch)
+    norms, _ = grad_norms(torch, model, state["params"], {k: v[:1] for k, v in batch.items()})
     bad = {k: v for k, v in norms.items() if not (math.isfinite(v) and v > 0)}
     out["grad_leaves"] = len(norms)
     out["grad_norm_min"] = min(norms.values())
-    out["grad_norm_wq_wk_wv_layer0"] = [norms[f"layers/0/attn/{w}"] for w in ("wq", "wk", "wv")]
+    out["grad_norms_layer0"] = {n: norms[f"layers/0/{n}"] for n in layer0}
     if bad:
-        fails.append(f"L2: leaves without a finite non-zero gradient: {sorted(bad)[:8]}")
-    step = make_train_step(model, opt, microbatches=micro)
+        fails.append(f"{tag}: leaves without a finite non-zero gradient: {sorted(bad)[:8]}")
     trace = device_breakdown(lambda: step(state, batch), n_cycles=1)
     out["idle_share"] = trace["idle_share"]
     out["trace_sessions"] = trace["sessions"]
     out["busy_ms"] = trace["busy_us_per_cycle"] / 1e3
     out["window_ms"] = trace["window_us_per_cycle"] / 1e3
-    out["flash_per_step"] = _flash_device_ms(trace)
+    out["kernels_per_step"] = kernel_device_ms(trace, groups)
     out["top_kernels"] = trace["kernels"][:12]
-    print(f"L2 gradients and one traced step: grads on {len(norms)} leaves, min norm "
-          f"{out['grad_norm_min']:.3e}; idle share {out['idle_share']:.4f}, "
-          f"{json.dumps(out['flash_per_step'])}", flush=True)
-    del state, batch, leaves, step
+    print(f"{tag} gradients and one traced step: grads on {len(norms)} leaves, min norm "
+          f"{out['grad_norm_min']:.3e}, layer 0 {json.dumps(out['grad_norms_layer0'])}; idle "
+          f"share {out['idle_share']:.4f}, {json.dumps(out['kernels_per_step'])}", flush=True)
+    print(f"{tag} step ms {step_ms:.1f} (floor {floor_ms:.1f}, share {out['floor_share']:.3f}), "
+          f"peak {peak / 1e9:.1f} GB, launches a step {json.dumps(out['launches_a_step'])}",
+          flush=True)
+    del state, batch, step
     return out
+
+
+def full_width_training(torch, dev, fails: list) -> dict:
+    """L2; appends to ``fails``."""
+    return train_full_width(
+        torch, dev, fails, tag="L2", config=STABLELM,
+        # a call of each a layer a microbatch; the backward launches 3 a call
+        launches_a_step=lambda cfg, micro: {"flash_attention": cfg.n_layers * micro,
+                                            "flash_attention_bwd": 3 * cfg.n_layers * micro},
+        layer0=("attn/wq", "attn/wk", "attn/wv"), groups=FLASH_KERNELS)
 
 
 def restart_on_card(torch, dev, fails: list) -> dict:
@@ -451,29 +493,33 @@ def restart_on_card(torch, dev, fails: list) -> dict:
     return out
 
 
-def rwkv_refuses(torch, dev, fails: list) -> dict:
+def kernels_without_backward_refuse(torch, dev, fails: list) -> dict:
     """L4; appends to ``fails``."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.kernels.flash_attention.flash import flash_attention
+    from repro_torch.kernels.pack.pack import copy_convert, gather_pack, segment_table
+    from repro_torch.kernels.stencil27.stencil27 import stencil27
 
-    model = build_model(get_config("rwkv6-1.6b").reduced(), dev)
-    params = model.init(0)
-    for _, p in tree_leaves(params):
-        p.requires_grad_(True)
-    tokens = torch.zeros((1, 16), dtype=torch.int32, device=dev)
+    blk = torch.randn((1, 6, 6, 6), device=dev, requires_grad=True)
+    q = torch.randn((1, 8, 2, 64), device=dev, requires_grad=True)
+    table = segment_table(((0, (0, 0, 0), (1, 6, 6)),), (6, 6, 6), dev)  # one x-face
+    calls = {
+        "copy_convert": lambda: copy_convert(blk, torch.empty((1, 6, 6, 6), device=dev)),
+        "gather_pack": lambda: gather_pack(blk, table, torch.empty((1, 36), device=dev)),
+        "stencil27": lambda: stencil27(blk, torch.ones((3, 3, 3), device=dev),
+                                       torch.empty((1, 4, 4, 4), device=dev)),
+        "flash_attention": lambda: flash_attention(q, q, q),
+    }
     out = {}
-    for what, call in (("loss", lambda: model.loss(params, {"tokens": tokens, "labels": tokens})),
-                       ("logits with grad", lambda: model.logits(params, {"tokens": tokens}))):
+    for what, call in calls.items():
         try:
             call()
             out[what] = "returned"
-            fails.append(f"L4: rwkv6-1.6b {what} returned instead of raising")
+            fails.append(f"L4: {what} returned an output without a graph instead of raising")
         except NotImplementedError as e:
             out[what] = str(e)
-    with torch.no_grad():  # serving stays on the kernel
-        out["logits_no_grad_shape"] = list(model.logits(params, {"tokens": tokens}).shape)
-    print(f"L4 rwkv6-1.6b refuses: {json.dumps(out)}", flush=True)
+        with torch.no_grad():  # serving and the exchanges: the kernel alone
+            call()
+    print(f"L4 kernels without a backward refuse a gradient: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -485,7 +531,7 @@ def train_phase(torch, dev, phases=("L1", "L2", "L3", "L4")) -> dict:
     fails: list[str] = []
     out: dict = {}
     steps = {"L1": backward_checks, "L2": full_width_training, "L3": restart_on_card,
-             "L4": rwkv_refuses}
+             "L4": kernels_without_backward_refuse}
     for name in phases:
         t0 = time.perf_counter()
         out[name] = steps[name](torch, dev, fails)
