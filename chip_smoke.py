@@ -319,8 +319,9 @@ M. Every family trains (``tools/train_families_lm.py``), after phase L:
    chunk 16, ``T = c`` (64 and a ragged 40), a given ``S0`` with a
    non-zero gradient on the final state, and bf16, every output within
    its stated tolerance; three calls bitwise equal; timed by CUDA events
-   and ``torch.profiler`` beside the plain version and autograd through
-   ``wkv_plain``, with its bound; (M2) rwkv6-1.6b at full width and depth
+   and ``torch.profiler`` (a call's three ``wkv_bwd_*`` kernels summed)
+   beside the plain version and autograd through ``wkv_plain``, with its
+   bound and its scratch bytes; (M2) rwkv6-1.6b at full width and depth
    through the ``Trainer``, 6 steps of 2 x 4096 tokens in 2 microbatches:
    finite losses, ``wkv_chunked_bwd`` launched 48 times a step, a finite
    non-zero gradient on every leaf, ms a step against its floor, peak
@@ -840,7 +841,11 @@ def families_training(torch, dev, kernels: dict) -> dict:
                       "and differentiates its jnp wkv_scan (src/repro/models/rwkv.py) with XLA",
         max_abs_err=out["M1"]["max_abs_err"], ms=path["ms"], plain_ms=path["plain_ms"],
         bound_ms=path["bound_ms"], bound_by=path["bound_by"], library_ms=None,
-        device_ms=path["device_ms"], autograd_plain_ms=path["autograd_plain_ms"],
+        device_ms=path["device_ms"], kernels_a_call=path["device_launches_a_call"],
+        device_ms_by_kernel=path["device_ms_by_kernel"],
+        device_ms_source=path["device_ms_source"],
+        scratch_bytes_a_call=path["scratch_bytes_a_call"],
+        autograd_plain_ms=path["autograd_plain_ms"],
         timing=path["timing"], shape="r, k, v, lw, dy (1, 4096, 32, 64) f32, chunk 64",
         flops=path["flops"], flop_convention=path["flop_convention"], bytes=path["bytes"],
         bitwise_repeatable=path["bitwise_repeatable"])
@@ -2577,19 +2582,23 @@ def main() -> int:
         heat3d_plan_timing=plan_timing, random_s=random_s,
     )
     # every device breakdown of this process: the sessions it took (1: traced
-    # once; more: a session recorded no device activity and was traced again)
-    # and its clock check
+    # once; more: a session lost device records and was traced again), the
+    # launch calls its session kept beyond its device records, and its clock
+    # check
     from repro_torch.core.profiling import TRACES
 
     gaps = [t[k] for t in TRACES for k in ("first_launch_to_device_us",
                                            "last_device_to_sync_end_us") if t.get(k) is not None]
     record["profiler_traces"] = dict(calls=len(TRACES), retraced=sum(t["sessions"] > 1
                                                                      for t in TRACES),
+                                     missing_records=sum(t.get("missing_records", 0)
+                                                         for t in TRACES),
                                      min_gap_us=min(gaps, default=None),
                                      max_gap_us=max(gaps, default=None), traces=TRACES)
     print(f"profiler: {len(TRACES)} device breakdowns in this process, "
           f"{record['profiler_traces']['retraced']} of them traced again (sessions "
-          f"{[t['sessions'] for t in TRACES]}); clock-check gaps "
+          f"{[t['sessions'] for t in TRACES]}), {record['profiler_traces']['missing_records']} "
+          f"launch calls without a device record in the sessions kept; clock-check gaps "
           f"{record['profiler_traces']['min_gap_us']} to {record['profiler_traces']['max_gap_us']} us",
           flush=True)
     record["script_s"] = time.perf_counter() - t_main

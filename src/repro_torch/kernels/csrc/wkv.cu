@@ -714,241 +714,660 @@ wkv_decode_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __r
 // ---------------------------------------------------------------------------
 // Backward (training): wkv_chunked_bwd.  The JAX package has no WKV backward
 // kernel (XLA differentiates its jnp scan); this one computes the same
-// gradient from the forward's chunk-entry states, marching the chunks in
-// reverse with the gradient dS of the state leaving each chunk:
-//   dS_in = diag(e^tot) dS + sum_t (r_t e^cp_t)^T dy_t
-//   dr_t  = (dy_t S^T) e^cp_t + sum_{s<t} (dy_t.v_s) k_s e^(cp_t - cum_s) + (dy_t.v_t) u k_t
-//   dk_s  = sum_{t>s} (dy_t.v_s) r_t e^(cp_t - cum_s) + (v_s dS^T) e^(tot - cum_s)
-//           + (dy_s.v_s) u r_s
+// gradient from the forward's chunk-entry states.  Per chunk of a (batch,
+// head) row, with entry state S, the gradient dS of the state leaving it,
+// cp_t the running sum of lw before row t, cum_t after it, tot the chunk's
+// sum and B_ts = dy_t.v_s:
+//   dS_in = diag(e^tot) dS + G,  G = sum_t (r_t e^cp_t)^T dy_t
+//   dr_t  = (dy_t S^T) e^cp_t + sum_{s<t} B_ts k_s e^(cp_t - cum_s) + B_tt u k_t
+//   dk_s  = sum_{t>s} B_ts r_t e^(cp_t - cum_s) + (v_s dS^T) e^(tot - cum_s) + B_ss u r_s
 //   dv_s  = sum_{t>=s} A_ts dy_t (A_ss the bonus r_s.u.k_s) + (k_s e^(tot - cum_s)) dS
-//   du    = sum_t (dy_t.v_t) r_t k_t
-// and the log decay's closed form: with dr', dk' the parts without the
-// bonus, dlw_j = sum_{t>j} (r dr')_t - sum_{s>=j} (k dk')_s
-// + rowsum(S_fin .* dS_fin), one running sum per channel carried across the
-// chunks (every pair s < j < t of a term counted once).
-//
-// A simple design, right first: one CTA per (head, batch) holds S, dS, the
-// chunk's rows and the pair matrices A and B = dy.v in shared memory (183 KB
-// at hd 64, c 64) and takes a per-pair exponential in each of the three
-// pairwise sums (A, dr's and dk's), f32 on the CUDA cores.  cp_t is the
-// previous row's running sum (exactly, so consecutive rows' decay is 1 and
-// no exponent is positive).  Each output element is summed by one thread in
-// a fixed order, and du is written per (batch, head) for the caller to sum
-// over the batch: the result is bitwise repeatable.  The forward's factored
-// sub-blocks and a head's column tiles in a cluster are the second design.
+//   du    = sum_t B_tt r_t k_t
+// and the log decay's closed form, within the chunk
+//   dlw_t = rowsum(S_out .* dS) + sum_{t'>t} (r dr' - k dk')_t' - (k dk')_t
+// (dr', dk' without the bonus; S_out the next chunk's entry state, S_fin
+// for the last): a chunk's total of r dr' - k dk' is rowsum(S .* dS_in) -
+// rowsum(S_out .* dS), its pairwise parts cancelling, so the sum over every
+// later chunk telescopes to the first term.  Only dS crosses chunks, and
+// elementwise once each chunk's G is known.  So a call is three kernels,
+// named wkv_bwd_*, counted as one launch:
+//   1. wkv_bwd_state_kernel, a CTA per (chunk, head, batch), every chunk at
+//      once: G into the scratch dS buffer, e^tot and the chunk's du.
+//   2. wkv_bwd_scan_kernel, a thread per four elements of a (batch, head)'s
+//      dS: march the chunks in reverse from dS_fin, eight chunks' loads in
+//      flight, overwriting each G with the dS leaving its chunk, then dS0;
+//      du summed over the chunks in order.
+//   3. wkv_bwd_chunk_kernel, a CTA per (chunk, head, batch): the rest.
+// What bounds it: operations (about 3.6 MFLOP a 64-row chunk of hd 64, f32
+// on the CUDA cores) and the shared-memory traffic of the products; each
+// CTA issues all its loads of a chunk's rows and states before its first
+// store (one round trip to memory).  The design of pass 3:
+//   * the forward's factored sub-blocks.  A chunk is cut into sub-blocks of
+//     16 rows (a ragged chunk padded with zero rows, which leaves every sum
+//     unchanged), with running sums of lw in log2 units inside each (Cl
+//     inclusive, Cp exclusive, tot_q the sub-block's), Rq = r 2^Cp and
+//     Kq = k 2^(tot_q - Cl), ET_q = 2^tot_q, every exponent <= 0.  Off the
+//     diagonal sub-blocks each pairwise sum is a dense product of 4 x 4
+//     register tiles: A_pq = Rq_p diag(2^(b_{p-1} - b_q)) Kq_q^T; dr' takes
+//     its state term and its pairs by Horner over the source sub-blocks,
+//       acc = dy S^T;  acc = acc ET_q + B_pq Kq_q (q = 0 .. p-1);  dr' = 2^Cp acc,
+//     and dk' over the target sub-blocks, from the other end,
+//       acc = v dS^T;  acc = acc ET_p + B_pq^T Rq_p (p = last .. q+1);  dk' = 2^(tot_q - Cl) acc,
+//     so every factor is a product of terms <= 1, each at least the exact
+//     one, and a factor underflows only where the term itself is below
+//     f32's range.  Only the diagonal sub-blocks take an exponential per
+//     pair: A's, in 1 x 4 strips of their lower triangle (40960 a 64-row
+//     chunk of hd 64, a quarter of them masked), and one that dr' and dk'
+//     share, a thread per (channel, sub-block) walking its 120 pairs
+//     (30720), against the pairwise form's 3 x 129024.
+//   * 16-byte shared loads without bank conflicts in B and the products of
+//     dr', dk' and dv: each reads rows of one operand and columns of the
+//     other (or columns of both), so v, S and dS are also stored
+//     transposed, and a warp's lanes take neighbouring column tiles (one
+//     row broadcast, 256 contiguous bytes).  A's tiles (rows of both) and
+//     strips do conflict; they are a thread an item after B, three warps
+//     of tiles and five of strips.
+//   * shared memory: twelve 64 x 68 f32 arrays (r, k, Cl, Rq, Kq, dy, v^T,
+//     S^T, dS, dS^T, A, B; dr' and dk' reuse r and k, which the kernel
+//     reloads from global memory for its last phase), 217.6 KB at
+//     c = hd = 64, so one CTA an SM: keeping fewer would recompute
+//     exponentials in the inner loops or split a chunk over a cluster.
+//     2048 CTAs at rwkv6-1.6b's training shape, 15.5 waves on 132 SMs.
+//   * every sum in a fixed order and no atomics: bitwise repeatable.
 // ---------------------------------------------------------------------------
 
 constexpr int NTHREADS_B = 256;
 
-// Shared memory of the backward in floats, for c rows at head size HD: seven
-// (c x LD) row arrays (r, k, v, dy, the running sums of lw in log2 units,
-// r dr' and k dk'), S and dS (HD x LD each), A and B (c x (c + 1): the lower
-// triangle with the diagonal) and u.
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ void st4(float* p, float4 a) { *reinterpret_cast<float4*>(p) = a; }
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+__device__ __forceinline__ float4 ex2_4(float4 a) {
+  return make_float4(ex2(a.x), ex2(a.y), ex2(a.z), ex2(a.w));
+}
+
+// 4 x 4 register tiles, acc[a] the four columns of row a; every x loop in
+// order.  P rows, Q columns: acc[a][b] += sum_{x < n} P[a*ldp + x] Q[x*ldq + b]
+// (n a multiple of 4), P's entries scaled by sc[x] where sc is given.
+__device__ __forceinline__ void mm_rc(float4 (&acc)[4], const float* P, int ldp, const float* Q,
+                                      int ldq, int n, const float* sc = nullptr) {
+  for (int x = 0; x < n; x += 4) {
+    float4 p[4], q[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) p[a] = ld4(P + a * ldp + x);
+    if (sc) {
+      const float4 s = ld4(sc + x);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) p[a] = mul4(p[a], s);
+    }
+#pragma unroll
+    for (int m = 0; m < 4; ++m) q[m] = ld4(Q + (x + m) * ldq);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      fma4(acc[a], p[a].x, q[0]);
+      fma4(acc[a], p[a].y, q[1]);
+      fma4(acc[a], p[a].z, q[2]);
+      fma4(acc[a], p[a].w, q[3]);
+    }
+  }
+}
+
+// Columns of both: acc[a][b] += sum_{x < n} P[x*ldp + a] Q[x*ldq + b].
+__device__ __forceinline__ void mm_cc(float4 (&acc)[4], const float* P, int ldp, const float* Q,
+                                      int ldq, int n) {
+#pragma unroll 4
+  for (int x = 0; x < n; ++x) {
+    const float4 p = ld4(P + x * ldp), q = ld4(Q + x * ldq);
+    fma4(acc[0], p.x, q);
+    fma4(acc[1], p.y, q);
+    fma4(acc[2], p.z, q);
+    fma4(acc[3], p.w, q);
+  }
+}
+
+// Rows of both, scaled: acc[a][b] += sum_{x < n} P[a*ldp + x] g[x] Q[b*ldq + x].
+__device__ __forceinline__ void mm_rr(float4 (&acc)[4], const float* P, int ldp, const float* g,
+                                      const float* Q, int ldq, int n) {
+  for (int x = 0; x < n; x += 4) {
+    const float4 gg = ld4(g + x);
+    float4 p[4], q[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) p[a] = ld4(P + a * ldp + x);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) q[b] = mul4(ld4(Q + b * ldq + x), gg);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float o[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        o[b] = fmaf(p[a].w, q[b].w, fmaf(p[a].z, q[b].z, fmaf(p[a].y, q[b].y, p[a].x * q[b].x)));
+      acc[a].x += o[0];
+      acc[a].y += o[1];
+      acc[a].z += o[2];
+      acc[a].w += o[3];
+    }
+  }
+}
+
+// Four elements of a row as f32: one 16-byte (f32) or 8-byte (bf16) load.
+template <typename T>
+__device__ __forceinline__ float4 load4(const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+}
+
+// The chunk's rows of r, k, dy and lw * log2(e) (t < c; zeros to cp) as f32
+// rows of pitch ld, v as columns (VT, pitch ldt) where VT is given, and
+// dy_t.v_t (BD, summed over the row's lanes in a fixed order) where BD is;
+// (b, n*c, h, 0) is element `base`, and every pointer 16-byte aligned.
+// Each thread issues all its loads (four vectors of each array at most)
+// before its first store, so a chunk's rows cost one round trip to memory.
+template <typename T, int HD>
+__device__ __forceinline__ void load_rows(float* R, float* K, float* Y, float* CL, float* VT,
+                                          float* BD, const T* r, const T* k, const T* dy,
+                                          const T* lw, const T* v, long long base,
+                                          long long rows, int c, int cp, int ld, int ldt,
+                                          int tid) {
+  constexpr int V4 = HD / 4, PER = (MAX_CHUNK * V4 + NTHREADS_B - 1) / NTHREADS_B;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 x[PER][5];
+#pragma unroll
+  for (int m = 0; m < PER; ++m) {
+    const int e = tid + m * NTHREADS_B, t = e / V4, i = 4 * (e % V4);
+    const long long g = base + t * rows + i;
+    const bool in = e < cp * V4 && t < c;
+    x[m][0] = in ? load4(r + g) : zero;
+    x[m][1] = in ? load4(k + g) : zero;
+    x[m][2] = in ? load4(dy + g) : zero;
+    x[m][3] = in ? load4(lw + g) : zero;
+    x[m][4] = in ? load4(v + g) : zero;
+  }
+#pragma unroll
+  for (int m = 0; m < PER; ++m) {
+    const int e = tid + m * NTHREADS_B, t = e / V4, i = 4 * (e % V4), w = t * ld + i;
+    if (e < cp * V4) {
+      st4(R + w, x[m][0]);
+      st4(K + w, x[m][1]);
+      st4(Y + w, x[m][2]);
+      st4(CL + w, make_float4(x[m][3].x * LOG2E, x[m][3].y * LOG2E, x[m][3].z * LOG2E,
+                              x[m][3].w * LOG2E));
+      if (VT) {
+        VT[i * ldt + t] = x[m][4].x;
+        VT[(i + 1) * ldt + t] = x[m][4].y;
+        VT[(i + 2) * ldt + t] = x[m][4].z;
+        VT[(i + 3) * ldt + t] = x[m][4].w;
+      }
+    }
+    if (BD) {
+      const float4 a = x[m][2], b = x[m][4];
+      float dot = a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+#pragma unroll
+      for (int off = V4 / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (e < cp * V4 && i == 0) BD[t] = dot;
+    }
+  }
+}
+
+// Pass 1: G = (r e^cp)^T dy into dS's slot of the chunk, 2^tot and the
+// chunk's du = sum_t (dy_t.v_t) r_t k_t.  Shared memory: r, k, dy, Cl
+// (cp x LD each), the sub-blocks' totals and parts of du, and dy_t.v_t.
+template <int HD>
+__host__ __device__ constexpr size_t state_smem_floats(int cp) {
+  return 4 * (size_t)cp * (HD + 4) + 2 * MAX_SB * HD + MAX_CHUNK;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(NTHREADS_B)
+wkv_bwd_state_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ lw, const T* __restrict__ dy, float* __restrict__ G,
+                     float* __restrict__ et, float* __restrict__ du_part, int Tlen, int H, int c) {
+  constexpr int LD = HD + 4, J4 = HD / 4;
+  const int cp = (c + SB - 1) / SB * SB, nsb = cp / SB;
+  extern __shared__ __align__(16) float bsm[];
+  float* R = bsm;
+  float* K = R + cp * LD;
+  float* Y = K + cp * LD;
+  float* CL = Y + cp * LD;
+  float* TOT = CL + cp * LD;
+  float* DUP = TOT + MAX_SB * HD;
+  float* BD = DUP + MAX_SB * HD;
+  const int tid = threadIdx.x, n = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nch = Tlen / c;
+  const long long rows = (long long)H * HD;
+  const long long base = ((long long)b * Tlen + (long long)n * c) * rows + (long long)h * HD;
+  const long long slot = ((long long)b * H + h) * nch + n;  // the chunk's index in the scratch
+
+  load_rows<T, HD>(R, K, Y, CL, nullptr, BD, r, k, dy, lw, v, base, rows, c, cp, LD, 0, tid);
+  __syncthreads();
+  // a thread per (channel, sub-block): the running sums in place, the
+  // sub-block's total and its part of du; then r e^cp in place, cp_t the
+  // sub-blocks before plus Cp_t, and du's parts summed in order
+  const bool col = tid < HD * nsb;
+  const int i = tid % HD, p = tid / HD;
+  if (col) {
+    float acc = 0.f, dua = 0.f;
+    for (int q = 0; q < SB; ++q) {
+      const int t = p * SB + q, w = t * LD + i;
+      acc += CL[w];
+      CL[w] = acc;
+      dua = fmaf(BD[t] * R[w], K[w], dua);
+    }
+    TOT[p * HD + i] = acc;
+    DUP[p * HD + i] = dua;
+  }
+  __syncthreads();
+  if (col) {
+    float before = 0.f, all = 0.f;
+    for (int q = 0; q < nsb; ++q) {
+      if (q < p) before += TOT[q * HD + i];
+      all += TOT[q * HD + i];
+    }
+    float cx = 0.f;
+    for (int q = 0; q < SB; ++q) {
+      const int w = (p * SB + q) * LD + i;
+      const float cl = CL[w];
+      R[w] *= ex2(before + cx);
+      cx = cl;
+    }
+    if (p == 0) {
+      float du = 0.f;
+      for (int q = 0; q < nsb; ++q) du += DUP[q * HD + i];
+      et[slot * HD + i] = ex2(all);
+      du_part[slot * HD + i] = du;
+    }
+  }
+  __syncthreads();
+  float* Gc = G + slot * HD * HD;
+  for (int e = tid; e < J4 * J4; e += NTHREADS_B) {
+    const int i0 = 4 * (e / J4), j0 = 4 * (e % J4);
+    float4 acc[4] = {};
+    mm_cc(acc, R + i0, LD, Y + j0, LD, cp);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) st4(Gc + (i0 + a) * HD + j0, acc[a]);
+  }
+}
+
+// Pass 2: dS holds each chunk's G (B, H, T/c, hd, hd); march the chunks in
+// reverse, dS <- 2^tot dS + G, leaving in each slot the dS of the state
+// leaving that chunk; dS0 the last.  A thread per four elements, the loads
+// of NB chunks in flight together.  du: the chunks' parts summed in order.
+constexpr int SCAN_THREADS = 64;
+
+__global__ void __launch_bounds__(SCAN_THREADS)
+wkv_bwd_scan_kernel(float* __restrict__ dS, const float* __restrict__ et,
+                    const float* __restrict__ du_part, const float* __restrict__ dS_fin,
+                    float* __restrict__ dS0, float* __restrict__ du, int nch, int hd) {
+  constexpr int NB = 8;
+  const int e = 4 * (blockIdx.x * SCAN_THREADS + threadIdx.x);
+  const long long bh = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  const long long mat = (long long)hd * hd;
+  if (e < mat) {
+    float4 cur = dS_fin ? ld4(dS_fin + bh * mat + e) : make_float4(0.f, 0.f, 0.f, 0.f);
+    float* p = dS + bh * nch * mat + e;
+    const float* ep = et + bh * nch * hd + e / hd;
+    for (int top = nch - 1; top >= 0; top -= NB) {
+      float4 g[NB];
+      float w[NB];
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+        if (top - q >= 0) {
+          g[q] = ld4(p + (top - q) * mat);
+          w[q] = ep[(long long)(top - q) * hd];
+        }
+#pragma unroll
+      for (int q = 0; q < NB; ++q)
+        if (top - q >= 0) {
+          st4(p + (top - q) * mat, cur);
+          cur = make_float4(fmaf(w[q], cur.x, g[q].x), fmaf(w[q], cur.y, g[q].y),
+                            fmaf(w[q], cur.z, g[q].z), fmaf(w[q], cur.w, g[q].w));
+        }
+    }
+    if (dS0) st4(dS0 + bh * mat + e, cur);
+  }
+  if (blockIdx.x == 0 && threadIdx.x < hd) {
+    float acc = 0.f;
+    for (int n = 0; n < nch; ++n) acc += du_part[(bh * nch + n) * hd + threadIdx.x];
+    du[bh * hd + threadIdx.x] = acc;
+  }
+}
+
+// Shared memory of pass 3 in floats, for a chunk padded to cp rows.
 template <int HD>
 struct BwdLayout {
-  static constexpr int LD = HD + 1;
-  int LC;
-  size_t R, K, V, Y, C, RD, KD, S, dS, A, B, U, total;
-  __host__ __device__ explicit BwdLayout(int c) : LC(c + 1) {
+  static constexpr int LD = HD + 4;  // pitch of the (x HD) arrays: 16-byte rows
+  int LC;                            // pitch of the (x cp) arrays
+  size_t R, K, CL, RQ, KQ, Y, VT, ST, DS, DST, A, B, TOT, ET, F, GQ, U, BASE, ZT, total;
+  __host__ __device__ explicit BwdLayout(int cp) : LC(cp + 4) {
     size_t o = 0;
     auto take = [&o](size_t n) {
       const size_t at = o;
-      o += n;
+      o += (n + 3) & ~size_t(3);
       return at;
     };
-    R = take(c * LD);
-    K = take(c * LD);
-    V = take(c * LD);
-    Y = take(c * LD);
-    C = take(c * LD);
-    RD = take(c * LD);
-    KD = take(c * LD);
-    S = take(HD * LD);
-    dS = take(HD * LD);
-    A = take(c * LC);
-    B = take(c * LC);
+    R = take(cp * LD);
+    K = take(cp * LD);
+    CL = take(cp * LD);
+    RQ = take(cp * LD);
+    KQ = take(cp * LD);
+    Y = take(cp * LD);
+    VT = take(HD * LC);
+    ST = take(HD * LD);
+    DS = take(HD * LD);
+    DST = take(HD * LD);
+    A = take(cp * LC);
+    B = take(cp * LC);
+    TOT = take(MAX_SB * HD);
+    ET = take(MAX_SB * HD);
+    F = take(MAX_SB * HD);
+    GQ = take(MAX_SB * MAX_SB * HD);
     U = take(HD);
+    BASE = take(HD);
+    ZT = take(MAX_SB * HD);
     total = o;
   }
 };
 
-// r, k, v, lw, dy and the outputs dr, dk, dv, dlw are (B, T, H, HD)
-// contiguous; states (B, H, T/c, HD, HD), S_fin, dS_fin and dS0 (B, H, HD,
-// HD), du (B, H, HD), all f32.  dS_fin and dS0 may be null.
+// The row t (in sub-block) and first source s4 (in quads) of strip w of a
+// diagonal sub-block's 40: rows 0-3 one quad each, 4-7 two, 8-11 three,
+// 12-15 four.
+__device__ __forceinline__ void strip_of(int w, int& tl, int& s4) {
+  if (w < 4) {
+    tl = w;
+    s4 = 0;
+  } else if (w < 12) {
+    tl = 4 + (w - 4) / 2;
+    s4 = (w - 4) % 2;
+  } else if (w < 24) {
+    tl = 8 + (w - 12) / 3;
+    s4 = (w - 12) % 3;
+  } else {
+    tl = 12 + (w - 24) / 4;
+    s4 = (w - 24) % 4;
+  }
+}
+
+// Pass 3.  r, k, v, lw, dy and the outputs dr, dk, dv, dlw are (B, T, H,
+// HD) contiguous; states (B, H, T/c, HD, HD), dS (the scan's, same shape)
+// and S_fin (B, H, HD, HD) f32; S_fin null where the last chunk's dS is 0.
 template <typename T, int HD>
 __global__ void __launch_bounds__(NTHREADS_B)
-wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-               const T* __restrict__ lw, const T* __restrict__ u, const T* __restrict__ dy,
-               const float* __restrict__ states, const float* __restrict__ S_fin,
-               const float* __restrict__ dS_fin, T* __restrict__ dr, T* __restrict__ dk,
-               T* __restrict__ dv, T* __restrict__ dlw, float* __restrict__ du,
-               float* __restrict__ dS0, int Tlen, int H, int c, long long usb, long long ush) {
-  constexpr int LD = HD + 1;
-  constexpr int NJ = HD * HD >= NTHREADS_B ? HD * HD / NTHREADS_B : 1;  // columns a task
-  constexpr int NG = HD / NJ;                                          // column groups
-  const BwdLayout<HD> lay(c);
+wkv_bwd_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ lw, const T* __restrict__ u, const T* __restrict__ dy,
+                     const float* __restrict__ states, const float* __restrict__ S_fin,
+                     const float* __restrict__ dS, T* __restrict__ dr, T* __restrict__ dk,
+                     T* __restrict__ dv, T* __restrict__ dlw, int Tlen, int H, int c,
+                     long long usb, long long ush) {
+  constexpr int LD = HD + 4, J4 = HD / 4;
+  constexpr unsigned FULL = 0xffffffffu;
+  const int cp = (c + SB - 1) / SB * SB, nsb = cp / SB, R4 = cp / 4;
+  const BwdLayout<HD> lay(cp);
   const int LC = lay.LC;
   extern __shared__ __align__(16) float bsm[];
-  float* R = bsm + lay.R;
-  float* K = bsm + lay.K;
-  float* V = bsm + lay.V;
+  float* R = bsm + lay.R;    // r; then dr' before the diagonal sub-blocks' pairs
+  float* K = bsm + lay.K;    // k; then dk' likewise
+  float* CL = bsm + lay.CL;  // running sums of lw * log2(e) inside each sub-block
+  float* RQ = bsm + lay.RQ;
+  float* KQ = bsm + lay.KQ;
   float* Y = bsm + lay.Y;
-  float* C = bsm + lay.C;    // inclusive running sums of lw * log2(e) in the chunk
-  float* RD = bsm + lay.RD;  // r dr'
-  float* KD = bsm + lay.KD;  // k dk'
-  float* S = bsm + lay.S;
-  float* dS = bsm + lay.dS;
-  float* A = bsm + lay.A;
-  float* Bm = bsm + lay.B;
+  float* VT = bsm + lay.VT;
+  float* ST = bsm + lay.ST;
+  float* DS = bsm + lay.DS;
+  float* DST = bsm + lay.DST;
+  float* A = bsm + lay.A;    // A_ts at [t][s], the bonus on the diagonal, 0 above it
+  float* Bm = bsm + lay.B;   // dy_t.v_s at [t][s], s <= t
+  float* TOT = bsm + lay.TOT;
+  float* ET = bsm + lay.ET;
+  float* F = bsm + lay.F;    // 2^(tot - b_q): the sub-blocks after q
+  float* GQ = bsm + lay.GQ;  // 2^(b_{p-1} - b_q) at (p * MAX_SB + q)
   float* U = bsm + lay.U;
-  const int tid = threadIdx.x, h = blockIdx.x, b = blockIdx.y;
+  float* BASE = bsm + lay.BASE;
+  float* ZT = bsm + lay.ZT;
+  const int tid = threadIdx.x, n = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int nch = Tlen / c;
-  const long long rows = (long long)H * HD;                               // elements a time step
-  const long long base = (long long)b * Tlen * rows + (long long)h * HD;  // (b, 0, h, 0)
-  const long long sbase = ((long long)b * H + h) * HD * HD;               // (b, h, 0, 0)
+  const long long rows = (long long)H * HD;
+  const long long base = ((long long)b * Tlen + (long long)n * c) * rows + (long long)h * HD;
+  const long long bh = (long long)b * H + h, slot = bh * nch + n;
+  const float* Sn = states + slot * HD * HD;
+  const float* dSn = dS + slot * HD * HD;
+  const float* Sout = n + 1 < nch ? Sn + HD * HD : S_fin ? S_fin + bh * HD * HD : nullptr;
 
-  for (int i = tid; i < HD; i += NTHREADS_B) U[i] = to_f32(u[b * usb + h * ush + i]);
-  for (int e = tid; e < HD * HD; e += NTHREADS_B)
-    dS[(e / HD) * LD + e % HD] = dS_fin ? dS_fin[sbase + e] : 0.f;
-  // channel tid's running sum of dlw, from rowsum(S_fin .* dS_fin), and du
-  float run = 0.f, du_acc = 0.f;
-  if (tid < HD && dS_fin)
-    for (int j = 0; j < HD; ++j)
-      run = fmaf(S_fin[sbase + tid * HD + j], dS_fin[sbase + tid * HD + j], run);
-
-  for (int n = nch - 1; n >= 0; --n) {
-    const long long t0 = (long long)n * c;
-    for (int e = tid; e < c * HD; e += NTHREADS_B) {
-      const int t = e / HD, i = e % HD, w = t * LD + i;
-      const long long g = base + (t0 + t) * rows + i;
-      R[w] = to_f32(r[g]);
-      K[w] = to_f32(k[g]);
-      V[w] = to_f32(v[g]);
-      Y[w] = to_f32(dy[g]);
-      C[w] = to_f32(lw[g]) * LOG2E;
+  // phase 0: the rows, S^T, dS and dS^T, u; rowsum(S_out .* dS) (a warp a
+  // row, in a fixed order); the running sums
+  load_rows<T, HD>(R, K, Y, CL, VT, nullptr, r, k, dy, lw, v, base, rows, c, cp, LD, LC, tid);
+  {
+    // S, dS and S_out, every load issued before the first store; S^T, dS,
+    // dS^T, and rowsum(S_out .* dS) over the V4 lanes of a row in a fixed order
+    constexpr int V4 = HD / 4, PS = (HD * V4 + NTHREADS_B - 1) / NTHREADS_B;
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    float4 s4[PS], d4[PS], o4[PS];
+#pragma unroll
+    for (int m = 0; m < PS; ++m) {
+      const int e = tid + m * NTHREADS_B;
+      const bool in = e < HD * V4;
+      s4[m] = in ? ld4(Sn + 4 * e) : zero;
+      d4[m] = in ? ld4(dSn + 4 * e) : zero;
+      o4[m] = in && Sout ? ld4(Sout + 4 * e) : zero;
     }
-    const float* Sg = states + (((long long)b * H + h) * nch + n) * HD * HD;
-    for (int e = tid; e < HD * HD; e += NTHREADS_B) S[(e / HD) * LD + e % HD] = Sg[e];
-    __syncthreads();
-    for (int i = tid; i < HD; i += NTHREADS_B) {
-      float acc = 0.f;
-      for (int t = 0; t < c; ++t) {
-        acc += C[t * LD + i];
-        C[t * LD + i] = acc;
+#pragma unroll
+    for (int m = 0; m < PS; ++m) {
+      const int e = tid + m * NTHREADS_B, i = e / V4, j = 4 * (e % V4);
+      float dot = o4[m].x * d4[m].x + o4[m].y * d4[m].y + o4[m].z * d4[m].z + o4[m].w * d4[m].w;
+#pragma unroll
+      for (int off = V4 / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(FULL, dot, off);
+      if (e < HD * V4) {
+        ST[j * LD + i] = s4[m].x;
+        ST[(j + 1) * LD + i] = s4[m].y;
+        ST[(j + 2) * LD + i] = s4[m].z;
+        ST[(j + 3) * LD + i] = s4[m].w;
+        st4(DS + i * LD + j, d4[m]);
+        DST[j * LD + i] = d4[m].x;
+        DST[(j + 1) * LD + i] = d4[m].y;
+        DST[(j + 2) * LD + i] = d4[m].z;
+        DST[(j + 3) * LD + i] = d4[m].w;
+        if (j == 0) BASE[i] = dot;
       }
     }
-    __syncthreads();
-
-    // pairs s <= t, one a thread: B_ts = dy_t.v_s, A_ts the decayed r_t.k_s
-    // (s < t) or the bonus r_t.u.k_t (s = t)
-    for (int p = tid; p < c * (c + 1) / 2; p += NTHREADS_B) {
-      int t = (int)((sqrtf(8.f * p + 1.f) - 1.f) * 0.5f);
-      while ((t + 1) * (t + 2) / 2 <= p) ++t;
-      while (t * (t + 1) / 2 > p) --t;
-      const int s = p - t * (t + 1) / 2;
-      const float* rt = R + t * LD;
-      const float* yt = Y + t * LD;
-      const float* kk = K + s * LD;
-      const float* vv = V + s * LD;
-      float bsum = 0.f, asum = 0.f;
-      if (s < t) {
-        const float* cpt = C + (t - 1) * LD;
-        const float* cs = C + s * LD;
-#pragma unroll 4
-        for (int i = 0; i < HD; ++i) {
-          bsum = fmaf(yt[i], vv[i], bsum);
-          asum = fmaf(rt[i] * kk[i], ex2(cpt[i] - cs[i]), asum);
-        }
-      } else {
-#pragma unroll 4
-        for (int i = 0; i < HD; ++i) {
-          bsum = fmaf(yt[i], vv[i], bsum);
-          asum = fmaf(rt[i] * U[i], kk[i], asum);
-        }
-      }
-      A[t * LC + s] = asum;
-      Bm[t * LC + s] = bsum;
-    }
-    __syncthreads();
-
-    // dr and r dr' per (row, channel)
-    for (int e = tid; e < c * HD; e += NTHREADS_B) {
-      const int t = e / HD, i = e % HD;
-      const float cpt = t > 0 ? C[(t - 1) * LD + i] : 0.f;
-      float st = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < HD; ++j) st = fmaf(Y[t * LD + j], S[i * LD + j], st);
-      float drp = ex2(cpt) * st;
-      for (int s = 0; s < t; ++s)
-        drp = fmaf(Bm[t * LC + s] * K[s * LD + i], ex2(cpt - C[s * LD + i]), drp);
-      dr[base + (t0 + t) * rows + i] = from_f32<T>(fmaf(Bm[t * LC + t] * U[i], K[t * LD + i], drp));
-      RD[t * LD + i] = R[t * LD + i] * drp;
-    }
-    // dk and k dk' per (row, channel)
-    for (int e = tid; e < c * HD; e += NTHREADS_B) {
-      const int s = e / HD, i = e % HD;
-      const float cs = C[s * LD + i];
-      float vt = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < HD; ++j) vt = fmaf(V[s * LD + j], dS[i * LD + j], vt);
-      float dkp = ex2(C[(c - 1) * LD + i] - cs) * vt;
-      for (int t = s + 1; t < c; ++t)
-        dkp = fmaf(Bm[t * LC + s] * R[t * LD + i], ex2(C[(t - 1) * LD + i] - cs), dkp);
-      dk[base + (t0 + s) * rows + i] = from_f32<T>(fmaf(Bm[s * LC + s] * U[i], R[s * LD + i], dkp));
-      KD[s * LD + i] = K[s * LD + i] * dkp;
-    }
-    // dv per (row, NJ columns)
-    for (int e = tid; e < c * NG; e += NTHREADS_B) {
-      const int s = e % c, j0 = (e / c) * NJ;
-      float acc[NJ];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) acc[jj] = 0.f;
-      for (int t = s; t < c; ++t) {
-        const float a = A[t * LC + s];
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) acc[jj] = fmaf(a, Y[t * LD + j0 + jj], acc[jj]);
-      }
-      for (int i = 0; i < HD; ++i) {
-        const float kd = K[s * LD + i] * ex2(C[(c - 1) * LD + i] - C[s * LD + i]);
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) acc[jj] = fmaf(kd, dS[i * LD + j0 + jj], acc[jj]);
-      }
-      T* out = dv + base + (t0 + s) * rows + j0;
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) out[jj] = from_f32<T>(acc[jj]);
-    }
-    __syncthreads();
-
-    // dlw and du by channel, rows in reverse; then dS <- dS_in in place, an
-    // element a thread
-    if (tid < HD) {
-      const int i = tid;
-      for (int t = c - 1; t >= 0; --t) {
-        run -= KD[t * LD + i];
-        dlw[base + (t0 + t) * rows + i] = from_f32<T>(run);
-        run += RD[t * LD + i];
-        du_acc = fmaf(Bm[t * LC + t] * R[t * LD + i], K[t * LD + i], du_acc);
-      }
-    }
-    for (int e = tid; e < HD * NG; e += NTHREADS_B) {
-      const int i = e % HD, j0 = (e / HD) * NJ;
-      const float et = ex2(C[(c - 1) * LD + i]);
-      float acc[NJ];
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) acc[jj] = et * dS[i * LD + j0 + jj];
-      for (int t = 0; t < c; ++t) {
-        const float rd = R[t * LD + i] * (t > 0 ? ex2(C[(t - 1) * LD + i]) : 1.f);
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) acc[jj] = fmaf(rd, Y[t * LD + j0 + jj], acc[jj]);
-      }
-#pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) dS[i * LD + j0 + jj] = acc[jj];
-    }
-    __syncthreads();
   }
-  if (dS0)
-    for (int e = tid; e < HD * HD; e += NTHREADS_B) dS0[sbase + e] = dS[(e / HD) * LD + e % HD];
-  if (tid < HD) du[((long long)b * H + h) * HD + tid] = du_acc;
+  for (int i = tid; i < HD; i += NTHREADS_B) U[i] = to_f32(u[b * usb + h * ush + i]);
+  __syncthreads();
+  if (tid < HD * nsb) {  // the running sums inside each sub-block, in place, and its total
+    const int i = tid % HD, p = tid / HD;
+    float acc = 0.f;
+    for (int q = 0; q < SB; ++q) {
+      float* w = CL + (p * SB + q) * LD + i;
+      acc += *w;
+      *w = acc;
+    }
+    TOT[p * HD + i] = acc;
+  }
+  __syncthreads();
+  // the factors, a thread per (channel, sub-block)
+  if (tid < HD * nsb) {
+    const int i = tid % HD, p = tid / HD;
+    float after = 0.f;
+    for (int q = p + 1; q < nsb; ++q) after += TOT[q * HD + i];
+    const float tp = TOT[p * HD + i];
+    ET[p * HD + i] = ex2(tp);
+    F[p * HD + i] = ex2(after);
+    float g = 0.f;
+    for (int q = p - 1; q >= 0; --q) {
+      GQ[(p * MAX_SB + q) * HD + i] = ex2(g);
+      g += TOT[q * HD + i];
+    }
+    float cx = 0.f;
+    for (int q = 0; q < SB; ++q) {
+      const int w = (p * SB + q) * LD + i;
+      const float cl = CL[w];
+      RQ[w] = R[w] * ex2(cx);
+      KQ[w] = K[w] * ex2(tp - cl);
+      cx = cl;
+    }
+  }
+  __syncthreads();
+
+  // phase 1: B, a thread a 4 x 4 tile at or below the diagonal (a warp two
+  // rows of tiles, conflict-free); then A, a thread an item: the tiles of
+  // the off-diagonal sub-blocks (the factored product, sub-block pair k =
+  // p(p-1)/2 + q), then the strips of the diagonal ones
+  for (int e = tid; e < R4 * R4; e += NTHREADS_B) {
+    const int t0 = 4 * (e / R4), s0 = 4 * (e % R4);
+    if (s0 <= t0) {
+      float4 acc[4] = {};
+      mm_rc(acc, Y + t0 * LD, LD, VT + s0, LC, HD);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) st4(Bm + (t0 + a) * LC + s0, acc[a]);
+    }
+  }
+  const int noff = nsb * (nsb - 1) / 2 * 16;
+  for (int e = tid; e < noff + 40 * nsb; e += NTHREADS_B) {
+    if (e < noff) {
+      const int k = e / 16;
+      int p = 1;
+      while (p * (p + 1) / 2 <= k) ++p;
+      const int q = k - p * (p - 1) / 2, t0 = p * SB + 4 * (e / 4 % 4), s0 = q * SB + 4 * (e % 4);
+      float4 at[4] = {};
+      mm_rr(at, RQ + t0 * LD, LD, GQ + (p * MAX_SB + q) * HD, KQ + s0 * LD, LD, HD);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) st4(A + (t0 + a) * LC + s0, at[a]);
+      continue;
+    }
+    // row t against s0..s0+3 of its sub-block: pair decays below the
+    // diagonal, the bonus r.u.k on it, 0 above (exponent -inf)
+    int tl, s4;
+    strip_of((e - noff) % 40, tl, s4);
+    const int p = (e - noff) / 40, t = p * SB + tl, s0 = p * SB + 4 * s4, dt = t - s0;
+    float cap[4];
+#pragma unroll
+    for (int bb = 0; bb < 4; ++bb) cap[bb] = bb < dt ? 0.f : __int_as_float(0xff800000);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < HD; i += 4) {
+      const float4 rv = ld4(R + t * LD + i);
+      const float4 cx = tl ? ld4(CL + (t - 1) * LD + i) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        const float4 kv = ld4(K + (s0 + bb) * LD + i), cl = ld4(CL + (s0 + bb) * LD + i);
+        float a = acc[bb];
+        a = fmaf(rv.x * kv.x, ex2(fminf(cx.x - cl.x, cap[bb])), a);
+        a = fmaf(rv.y * kv.y, ex2(fminf(cx.y - cl.y, cap[bb])), a);
+        a = fmaf(rv.z * kv.z, ex2(fminf(cx.z - cl.z, cap[bb])), a);
+        a = fmaf(rv.w * kv.w, ex2(fminf(cx.w - cl.w, cap[bb])), a);
+        acc[bb] = a;
+      }
+    }
+    if (dt < 4) {
+      float bonus = 0.f;
+      for (int i = 0; i < HD; ++i) bonus = fmaf(R[t * LD + i] * U[i], K[t * LD + i], bonus);
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb)
+        if (bb == dt) acc[bb] = bonus;
+    }
+    st4(A + t * LC + s0, make_float4(acc[0], acc[1], acc[2], acc[3]));
+  }
+  __syncthreads();
+
+  // phase 2, 4 x 4 tiles (rows t0.., columns c0..): dv to the output; dr'
+  // and dk' but for the diagonal sub-blocks' pairs into R and K (read only
+  // by phase 1)
+  for (int e = tid; e < R4 * J4; e += NTHREADS_B) {
+    const int t0 = 4 * (e / J4), c0 = 4 * (e % J4), p = t0 / SB;
+    {
+      float4 acc[4] = {};
+      mm_cc(acc, A + t0 * LC + t0, LC, Y + t0 * LD + c0, LD, cp - t0);  // A^T dy, t >= s
+      mm_rc(acc, KQ + t0 * LD, LD, DS + c0, LD, HD, F + p * HD);         // (k 2^(tot - cum)) dS
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        if (t0 + a < c) store4<T>(dv + base + (t0 + a) * rows + c0, acc[a]);
+    }
+    float4 dra[4] = {}, dka[4] = {};
+    mm_rc(dra, Y + t0 * LD, LD, ST + c0, LD, HD);  // dy S^T
+    for (int q = 0; q < p; ++q) {
+      const float4 et = ld4(ET + q * HD + c0);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) dra[a] = mul4(dra[a], et);
+      mm_rc(dra, Bm + t0 * LC + q * SB, LC, KQ + q * SB * LD + c0, LD, SB);
+    }
+    mm_cc(dka, VT + t0, LC, DST + c0, LD, HD);  // v dS^T
+    for (int q = nsb - 1; q > p; --q) {
+      const float4 et = ld4(ET + q * HD + c0);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) dka[a] = mul4(dka[a], et);
+      mm_cc(dka, Bm + q * SB * LC + t0, LC, RQ + q * SB * LD + c0, LD, SB);
+    }
+    const float4 tq = ld4(TOT + p * HD + c0);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int t = t0 + a;
+      const float4 cx = t % SB ? ld4(CL + (t - 1) * LD + c0) : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 cl = ld4(CL + t * LD + c0);
+      st4(R + t * LD + c0, mul4(dra[a], ex2_4(cx)));
+      st4(K + t * LD + c0,
+          mul4(dka[a], ex2_4(make_float4(tq.x - cl.x, tq.y - cl.y, tq.z - cl.z, tq.w - cl.w))));
+    }
+  }
+  __syncthreads();
+
+  // phase 3, a thread per (channel i, sub-block p): the diagonal
+  // sub-block's pairs, one exponential each for dr' and dk'; the bonus; dr
+  // and dk out; r dr' - k dk' summed by sub-block for dlw
+  const bool col = tid < HD * nsb;
+  const int ci = tid % HD, cpb = tid / HD, t00 = cpb * SB;
+  float ys[SB], zs[SB];
+  if (col) {
+    float rr[SB], kk[SB], cl[SB], drd[SB], dkd[SB];
+#pragma unroll
+    for (int q = 0; q < SB; ++q) {
+      const int t = t00 + q;
+      const long long g = base + t * rows + ci;
+      rr[q] = t < c ? to_f32(r[g]) : 0.f;
+      kk[q] = t < c ? to_f32(k[g]) : 0.f;
+      cl[q] = CL[t * LD + ci];
+      drd[q] = R[t * LD + ci];
+      dkd[q] = K[t * LD + ci];
+    }
+#pragma unroll
+    for (int t = 1; t < SB; ++t)
+#pragma unroll
+      for (int s = 0; s < t; ++s) {
+        const float bts = Bm[(t00 + t) * LC + t00 + s];
+        const float d = ex2(cl[t - 1] - cl[s]);  // Cp_t - Cl_s <= 0
+        drd[t] = fmaf(bts * kk[s], d, drd[t]);
+        dkd[s] = fmaf(bts * rr[t], d, dkd[s]);
+      }
+    const float ui = U[ci];
+    float zt = 0.f;
+#pragma unroll
+    for (int q = 0; q < SB; ++q) {
+      const int t = t00 + q;
+      const float bu = Bm[t * LC + t] * ui;
+      ys[q] = kk[q] * dkd[q];
+      zs[q] = rr[q] * drd[q] - ys[q];
+      zt += zs[q];
+      if (t < c) {
+        const long long g = base + t * rows + ci;
+        dr[g] = from_f32<T>(fmaf(bu, kk[q], drd[q]));
+        dk[g] = from_f32<T>(fmaf(bu, rr[q], dkd[q]));
+      }
+    }
+    ZT[cpb * HD + ci] = zt;
+  }
+  __syncthreads();
+  if (col) {
+    float run = BASE[ci];
+    for (int q = nsb - 1; q > cpb; --q) run += ZT[q * HD + ci];
+#pragma unroll
+    for (int q = SB - 1; q >= 0; --q) {
+      const int t = t00 + q;
+      if (t < c) dlw[base + t * rows + ci] = from_f32<T>(run - ys[q]);
+      run += zs[q];
+    }
+  }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -1062,8 +1481,13 @@ cudaError_t allow_bwd_smem() {
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < MAX_DEVICES && done[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(wkv_bwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)(BwdLayout<HD>(MAX_CHUNK).total * sizeof(float)));
+  err = cudaFuncSetAttribute(wkv_bwd_state_kernel<T, HD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(state_smem_floats<HD>(MAX_CHUNK) * sizeof(float)));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(wkv_bwd_chunk_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(BwdLayout<HD>(MAX_CHUNK).total * sizeof(float)));
   if (err == cudaSuccess && dev < MAX_DEVICES) done[dev] = true;
   return err;
 }
@@ -1072,15 +1496,31 @@ template <typename T, int HD>
 cudaError_t launch_bwd(const void* r, const void* k, const void* v, const void* lw, const void* u,
                        const void* dy, const float* states, const float* S_fin,
                        const float* dS_fin, void* dr, void* dk, void* dv, void* dlw, float* du,
-                       float* dS0, int B, int Tlen, int H, int c, long long usb, long long ush,
-                       cudaStream_t st) {
-  const cudaError_t attr = allow_bwd_smem<T, HD>();
-  if (attr != cudaSuccess) return attr;
-  wkv_bwd_kernel<T, HD><<<dim3(H, B), NTHREADS_B, BwdLayout<HD>(c).total * sizeof(float), st>>>(
-      static_cast<const T*>(r), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(lw), static_cast<const T*>(u), static_cast<const T*>(dy), states,
-      S_fin, dS_fin, static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<T*>(dlw), du, dS0, Tlen, H, c, usb, ush);
+                       float* dS0, float* work, int B, int Tlen, int H, int c, long long usb,
+                       long long ush, cudaStream_t st) {
+  cudaError_t err = allow_bwd_smem<T, HD>();
+  if (err != cudaSuccess) return err;
+  const int cp = (c + SB - 1) / SB * SB, nch = Tlen / c;
+  const size_t slots = (size_t)B * H * nch;
+  float* dS = work;                           // (B, H, T/c, HD, HD): G, then dS
+  float* et = dS + slots * HD * HD;           // (B, H, T/c, HD): 2^tot
+  float* du_part = et + slots * HD;           // (B, H, T/c, HD)
+  const dim3 grid(nch, H, B);
+  const T* r_ = static_cast<const T*>(r);
+  const T* k_ = static_cast<const T*>(k);
+  const T* v_ = static_cast<const T*>(v);
+  const T* lw_ = static_cast<const T*>(lw);
+  const T* dy_ = static_cast<const T*>(dy);
+  wkv_bwd_state_kernel<T, HD><<<grid, NTHREADS_B, state_smem_floats<HD>(cp) * sizeof(float), st>>>(
+      r_, k_, v_, lw_, dy_, dS, et, du_part, Tlen, H, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wkv_bwd_scan_kernel<<<dim3((HD * HD / 4 + SCAN_THREADS - 1) / SCAN_THREADS, H, B),
+                        SCAN_THREADS, 0, st>>>(dS, et, du_part, dS_fin, dS0, du, nch, HD);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  wkv_bwd_chunk_kernel<T, HD><<<grid, NTHREADS_B, BwdLayout<HD>(cp).total * sizeof(float), st>>>(
+      r_, k_, v_, lw_, static_cast<const T*>(u), dy_, states, dS_fin ? S_fin : nullptr, dS,
+      static_cast<T*>(dr), static_cast<T*>(dk), static_cast<T*>(dv), static_cast<T*>(dlw), Tlen,
+      H, c, usb, ush);
   return cudaGetLastError();
 }
 
@@ -1088,12 +1528,12 @@ template <typename T>
 cudaError_t launch_bwd_hd(int HD, const void* r, const void* k, const void* v, const void* lw,
                           const void* u, const void* dy, const float* states, const float* S_fin,
                           const float* dS_fin, void* dr, void* dk, void* dv, void* dlw,
-                          float* du, float* dS0, int B, int Tlen, int H, int c, long long usb,
-                          long long ush, cudaStream_t st) {
+                          float* du, float* dS0, float* work, int B, int Tlen, int H, int c,
+                          long long usb, long long ush, cudaStream_t st) {
 #define WKV_BWD_CASE(D)                                                                       \
   case D:                                                                                     \
     return launch_bwd<T, D>(r, k, v, lw, u, dy, states, S_fin, dS_fin, dr, dk, dv, dlw, du,   \
-                            dS0, B, Tlen, H, c, usb, ush, st);
+                            dS0, work, B, Tlen, H, c, usb, ush, st);
   switch (HD) {
     WKV_BWD_CASE(8)
     WKV_BWD_CASE(16)
@@ -1104,7 +1544,6 @@ cudaError_t launch_bwd_hd(int HD, const void* r, const void* k, const void* v, c
       return cudaErrorInvalidValue;
   }
 }
-
 }  // namespace
 
 extern "C" {
@@ -1147,11 +1586,13 @@ int wkv_chunked(const void* r, const void* k, const void* v, const void* lw, con
 // f32 per (batch, head), dS0 (B, H, hd, hd) f32 or null.  r, k, v, lw and
 // dy are (B, T, H, hd) contiguous, u as in wkv_chunked; states is the
 // forward's (B, H, T/c, hd, hd) output and S_fin its final state (read only
-// with dS_fin).  One CTA per (head, batch); H, B <= 65535.
+// with dS_fin).  work is f32 scratch of B*H*(T/c)*(hd*hd + 2*hd) floats.
+// Three kernels on the stream (G and the chunks' du; the dS scan; the
+// chunks' gradients); H, B <= 65535.
 int wkv_chunked_bwd(const void* r, const void* k, const void* v, const void* lw, const void* u,
                     const void* dy, const void* states, const void* S_fin, const void* dS_fin,
-                    void* dr, void* dk, void* dv, void* dlw, void* du, void* dS0, int dtype,
-                    int B, int T, int H, int hd, int c, long long usb, long long ush,
+                    void* dr, void* dk, void* dv, void* dlw, void* du, void* dS0, void* work,
+                    int dtype, int B, int T, int H, int hd, int c, long long usb, long long ush,
                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (c <= 0 || c > MAX_CHUNK || T % c != 0) return (int)cudaErrorInvalidValue;
@@ -1161,13 +1602,14 @@ int wkv_chunked_bwd(const void* r, const void* k, const void* v, const void* lw,
   const float* dsf = static_cast<const float*>(dS_fin);
   float* du_ = static_cast<float*>(du);
   float* ds0 = static_cast<float*>(dS0);
+  float* wk = static_cast<float*>(work);
   cudaError_t err;
   if (dtype == F32)
-    err = launch_bwd_hd<float>(hd, r, k, v, lw, u, dy, sts, sf, dsf, dr, dk, dv, dlw, du_, ds0, B,
-                               T, H, c, usb, ush, st);
+    err = launch_bwd_hd<float>(hd, r, k, v, lw, u, dy, sts, sf, dsf, dr, dk, dv, dlw, du_, ds0,
+                               wk, B, T, H, c, usb, ush, st);
   else if (dtype == BF16)
     err = launch_bwd_hd<__nv_bfloat16>(hd, r, k, v, lw, u, dy, sts, sf, dsf, dr, dk, dv, dlw, du_,
-                                       ds0, B, T, H, c, usb, ush, st);
+                                       ds0, wk, B, T, H, c, usb, ush, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -14,13 +14,18 @@ exponentiated; across chunks the state is carried by a Python loop.
 
 :func:`wkv_bwd_plain` is the written form of the backward that the
 hand-written ``wkv_chunked_bwd`` kernel computes (the JAX package has no
-WKV backward: XLA differentiates its jnp scan), chunk by chunk in reverse,
-from each chunk's entry state S and the gradient dS of the state leaving
-it (``cp = cum - lw``, ``tot`` the chunk's last ``cum``)::
+WKV backward: XLA differentiates its jnp scan), in the kernel's three
+passes.  Per chunk n, with entry state S (the forward's), ``cp = cum - lw``,
+``tot`` the chunk's last ``cum`` and dS the gradient of the state leaving
+the chunk, only dS crosses chunks::
 
-    dS_in = diag(e^tot) dS + sum_t (r_t e^cp_t)^T dy_t
-    dr_t  = (dy_t S^T) e^cp_t + sum_{s<t} (dy_t.v_s) k_s e^(cp_t - cum_s)
-            + (dy_t.v_t) u k_t
+    dS_in = diag(e^tot) dS + G,   G = sum_t (r_t e^cp_t)^T dy_t
+
+so pass 1 computes every chunk's G (and e^tot) at once, pass 2 scans dS
+over the chunks in reverse (elementwise), and pass 3 computes every
+chunk's gradients at once from its own rows, S and dS::
+
+    dr_t  = (dy_t S^T) e^cp_t + sum_{s<t} (dy_t.v_s) k_s e^(cp_t - cum_s) + (dy_t.v_t) u k_t
     dk_s  = sum_{t>s} (dy_t.v_s) r_t e^(cp_t - cum_s) + (v_s dS^T) e^(tot - cum_s)
             + (dy_s.v_s) u r_s
     dv_s  = sum_{t>s} A_ts dy_t + (sum_i r_si u_i k_si) dy_s + (k_s e^(tot - cum_s)) dS
@@ -29,8 +34,12 @@ it (``cp = cum - lw``, ``tot`` the chunk's last ``cum``)::
 The log decay's gradient has a closed form: with ``dr'`` and ``dk'`` the
 parts of ``dr`` and ``dk`` without the bonus, over the whole sequence
 ``dlw_j = sum_{t>j} (r dr')_t - sum_{s>=j} (k dk')_s + rowsum(S_fin dS_fin)``
-(each pair s < j < t of a term counted once), one running sum per channel
-that the reverse march carries across chunks.
+(each pair s < j < t of a term counted once).  A chunk's total of
+``r dr' - k dk'`` is ``rowsum(S_in dS_in) - rowsum(S_out dS_out)`` (its
+pairwise parts cancel), so the sum over every later chunk telescopes:
+within chunk n, ``dlw_t = rowsum(S_out dS_out) + sum_{t'>t} (r dr' - k
+dk')_t' - (k dk')_t``, with ``S_out`` the next chunk's entry state (S_fin
+for the last) and dS_out the scan's.  No running sum crosses chunks.
 
 This module imports nothing of the port's models: the model imports the
 kernel package, never the reverse.
@@ -114,58 +123,68 @@ def wkv_chunked_ref(r, k, v, lw, u, *, chunk: int = CHUNK) -> torch.Tensor:
 def wkv_bwd_plain(r, k, v, lw, u, dy, *, chunk: int = CHUNK, S0=None, dS_fin=None):
     """Gradients of :func:`wkv_scan_ref`'s ``(y, S_final)`` against ``dy``
     (B, T, H, hd) and ``dS_fin`` (B, H, hd, hd; zeros when None), by the
-    formulas of the module docstring, in the inputs' dtype.  Returns ``(dr,
-    dk, dv, dlw, du, dS0)``: du in u's shape ((H, hd): summed over the
-    batch), dS0 the gradient of the starting state (of the zeros when
-    ``S0`` is None)."""
+    formulas of the module docstring, in the inputs' dtype, in the
+    kernel's passes.  Returns ``(dr, dk, dv, dlw, du, dS0)``: du in u's
+    shape ((H, hd): summed over the batch), dS0 the gradient of the
+    starting state (of the zeros when ``S0`` is None)."""
     B, T, H, hd = r.shape
     c = min(chunk, T)
     if c <= 0 or T % c:
         raise ValueError(f"wkv: sequence length {T} is not a multiple of the chunk {c}")
+    N = T // c
     S = torch.zeros((B, H, hd, hd), dtype=r.dtype, device=r.device) if S0 is None else S0
-    states = []  # each chunk's entry state
+    states = []  # each chunk's entry state (the forward's), then the final one
     for t0 in range(0, T, c):
         states.append(S)
         _, S = _wkv_chunk(r[:, t0:t0 + c], k[:, t0:t0 + c], v[:, t0:t0 + c],
                           lw[:, t0:t0 + c], u, S)
+    states.append(S)
+
+    def chunks(x):  # (B, T, H, hd) -> (B, N, c, H, hd)
+        return x.reshape(B, N, c, H, hd)
+
+    # pass 1, every chunk at once: G_n = sum_t (r_t e^cp_t)^T dy_t and e^tot
+    cum = torch.cumsum(chunks(lw), dim=2)
+    cp = cum - chunks(lw)
+    G = torch.einsum("bnthi,bnthj->bnhij", chunks(r) * torch.exp(cp), chunks(dy))
+    e_tot = torch.exp(cum[:, :, -1])  # (B, N, H, hd)
+    # pass 2: dS leaving each chunk, in reverse; dS0 is the last dS_in
     dS = torch.zeros_like(S) if dS_fin is None else dS_fin.to(S.dtype)
-    run = torch.sum(S * dS, dim=-1)  # (B, H, hd): the final state's part of dlw
+    dS_out = [None] * N
+    for n in reversed(range(N)):
+        dS_out[n] = dS
+        dS = e_tot[:, n, ..., None] * dS + G[:, n]
+    # pass 3, each chunk on its own: its gradients given dS_out
     ub = u if u.dim() == 2 else u[:, None]
     ar = torch.arange(c, device=r.device)
     below = (ar[:, None] > ar[None, :])[None, :, :, None, None]  # t > s
     grads = {n: torch.empty_like(r) for n in ("dr", "dk", "dv", "dlw")}
     du = torch.zeros((B, H, hd), dtype=r.dtype, device=r.device)
-    for n in reversed(range(T // c)):
+    for n in range(N):
         sl = slice(n * c, (n + 1) * c)
-        rr, kk, vv, ll, dd = r[:, sl], k[:, sl], v[:, sl], lw[:, sl], dy[:, sl]
-        S_in = states[n]
-        cum = torch.cumsum(ll, dim=1)
-        cp = cum - ll
-        tot = cum[:, -1]  # (B, H, hd)
-        D = torch.where(below, torch.exp(torch.clamp(cp[:, :, None] - cum[:, None], max=0.0)),
+        rr, kk, vv, dd = r[:, sl], k[:, sl], v[:, sl], dy[:, sl]
+        cu, cx, tot, dSn = cum[:, n], cp[:, n], cum[:, n, -1], dS_out[n]
+        D = torch.where(below, torch.exp(torch.clamp(cx[:, :, None] - cu[:, None], max=0.0)),
                         0.0)  # (B, t, s, H, hd)
         Bm = torch.einsum("bthj,bshj->bhts", dd, vv)  # dy_t . v_s
         on_diag = torch.diagonal(Bm, dim1=-2, dim2=-1).transpose(1, 2)  # (B, c, H)
         bonus = torch.sum(rr * ub * kk, dim=-1)  # (B, c, H)
         A = torch.einsum("bthi,bshi,btshi->bhts", rr, kk, D)
-        kdec = torch.exp(tot[:, None] - cum)
-        drp = (torch.exp(cp) * torch.einsum("bthj,bhij->bthi", dd, S_in)
+        kdec = torch.exp(tot[:, None] - cu)
+        drp = (torch.exp(cx) * torch.einsum("bthj,bhij->bthi", dd, states[n])
                + torch.einsum("bhts,bshi,btshi->bthi", Bm, kk, D))
         dkp = (torch.einsum("bhts,bthi,btshi->bshi", Bm, rr, D)
-               + kdec * torch.einsum("bshj,bhij->bshi", vv, dS))
+               + kdec * torch.einsum("bshj,bhij->bshi", vv, dSn))
         grads["dr"][:, sl] = drp + on_diag[..., None] * ub * kk
         grads["dk"][:, sl] = dkp + on_diag[..., None] * ub * rr
         grads["dv"][:, sl] = (torch.einsum("bhts,bthj->bshj", A, dd) + bonus[..., None] * dd
-                              + torch.einsum("bshi,bhij->bshj", kk * kdec, dS))
+                              + torch.einsum("bshi,bhij->bshj", kk * kdec, dSn))
         du = du + torch.einsum("bth,bthi->bhi", on_diag, rr * kk)
-        dS = (torch.exp(tot)[..., None] * dS
-              + torch.einsum("bthi,bthj->bhij", rr * torch.exp(cp), dd))
-        # dlw_t = run + sum_{t'>t in the chunk} (r dr' - k dk')_t' - (k dk')_t
+        # dlw_t = rowsum(S_out dS_out) + sum_{t'>t in the chunk} (r dr' - k dk')_t' - (k dk')_t
         x, y = rr * drp, kk * dkp
         z = x - y
         after = torch.sum(z, dim=1, keepdim=True) - torch.cumsum(z, dim=1)
-        grads["dlw"][:, sl] = run[:, None] + after - y
-        run = run + torch.sum(z, dim=1)
+        grads["dlw"][:, sl] = torch.sum(states[n + 1] * dSn, dim=-1)[:, None] + after - y
     if u.dim() == 2:
         du = torch.sum(du, dim=0)
     return grads["dr"], grads["dk"], grads["dv"], grads["dlw"], du, dS

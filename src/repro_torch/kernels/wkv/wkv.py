@@ -28,11 +28,16 @@ current stream, allocates only its outputs, and adds one to
 
 Training (:class:`WkvChunkedFn`): the forward also writes each chunk's
 entry state, and :func:`wkv_chunked_bwd`, the hand-written backward (the
-JAX package has none: XLA differentiates its jnp scan), reads them and
-marches the chunks in reverse: one CTA per (head, batch) with S, dS and the
-chunk's rows in shared memory, a per-pair exponential in each pairwise sum,
-f32 on the CUDA cores, and the log decay's gradient by its closed form
-(``ref.wkv_bwd_plain`` writes the formulas out).  Bound by operations.
+JAX package has none: XLA differentiates its jnp scan), reads them.  Only
+the gradient dS of the state crosses chunks, elementwise once each chunk's
+``G = (r e^cp)^T dy`` is known, so a call is three kernels: every chunk's
+G at once, a reverse scan of dS over the chunks, then every chunk's
+gradients at once, each chunk in the forward's factored 16-row sub-blocks
+(dense 4 x 4 register-tiled products off the diagonal, Horner over the
+sub-blocks for the state terms, an exponential per pair only on the
+diagonal), f32 on the CUDA cores; the log decay's gradient by its closed
+form, whose sum over later chunks telescopes to ``rowsum(S_out dS_out)``
+(``ref.wkv_bwd_plain`` writes the passes out).  Bound by operations.
 Bitwise repeatable: every sum in a fixed order.
 """
 
@@ -51,7 +56,7 @@ HEAD_DIMS = (8, 16, 32, 64)
 MAX_CHUNK = 64
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {"wkv_chunked": [*([_P] * 9), *([_I] * 6), *([_L] * 14), _P],
-               "wkv_chunked_bwd": [*([_P] * 15), *([_I] * 6), _L, _L, _P]}
+               "wkv_chunked_bwd": [*([_P] * 16), *([_I] * 6), _L, _L, _P]}
 
 
 def _check_f32(t: torch.Tensor, shape: tuple, device: torch.device, name: str) -> None:
@@ -156,6 +161,21 @@ def wkv_chunked(
     return y, S_fin
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the backward's vector loads
+    read it: ``t`` itself, or a copy."""
+    if t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def bwd_workspace_floats(b: int, T: int, h: int, hd: int, c: int) -> int:
+    """f32 scratch of one :func:`wkv_chunked_bwd` call, in floats: each
+    chunk's G and then its dS ``(B, H, T/c, hd, hd)``, its ``e^tot`` and its
+    part of du ``(B, H, T/c, hd)`` (34.6 MB at rwkv6-1.6b's training shape
+    (1, 4096, 32, 64), chunk 64)."""
+    return b * h * (T // c) * (hd * hd + 2 * hd)
+
 
 def wkv_chunked_bwd(
     r: torch.Tensor,
@@ -177,7 +197,9 @@ def wkv_chunked_bwd(
     dlw are new contiguous ``(B, T, H, hd)`` tensors in r's dtype, du in
     u's shape and dtype (a per-head u's gradient summed over the batch in
     a fixed order), dS0 a ``(B, H, hd, hd)`` f32 tensor when ``want_dS0``,
-    else None.  One launch, counted in ``_build.LAUNCHES["wkv_chunked_bwd"]``."""
+    else None.  Three kernels (each chunk's G, the dS scan, each chunk's
+    gradients) and f32 scratch of :func:`bwd_workspace_floats`, counted as
+    one launch in ``_build.LAUNCHES["wkv_chunked_bwd"]``."""
     b, T, h, hd, c = _check_inputs("wkv_chunked_bwd", chunk, u, r=r, k=k, v=v, lw=lw, dy=dy)
     usb, ush = _u_strides(u, b, h, hd)
     _check_f32(states, (b, h, T // c, hd, hd), r.device, "states")
@@ -187,18 +209,23 @@ def wkv_chunked_bwd(
         _check_f32(S_fin, (b, h, hd, hd), r.device, "S_fin")
         dS_fin = dS_fin.float().contiguous()
         _check_f32(dS_fin, (b, h, hd, hd), r.device, "dS_fin")
-    r, k, v, lw, dy = (t.contiguous() for t in (r, k, v, lw, dy))  # the kernel's layout
+        S_fin, dS_fin = _aligned(S_fin), _aligned(dS_fin)
+    states = _aligned(states)
+    r, k, v, lw, dy = (_aligned(t) for t in (r, k, v, lw, dy))  # the kernel's layout
     dr, dk, dv, dlw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
     dS0 = (torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device) if want_dS0
            else None)
+    work = torch.empty(bwd_workspace_floats(b, T, h, hd, c), dtype=torch.float32,
+                       device=r.device)
     lib = _build.load("wkv", _SIGNATURES)
     code = lib.wkv_chunked_bwd(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(), dy.data_ptr(),
         states.data_ptr(), None if dS_fin is None else S_fin.data_ptr(),
         None if dS_fin is None else dS_fin.data_ptr(), dr.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), dlw.data_ptr(), du.data_ptr(), None if dS0 is None else dS0.data_ptr(),
-        _DTYPE_CODE[r.dtype], b, T, h, hd, c, usb, ush, _build.stream_ptr(r.device),
+        work.data_ptr(), _DTYPE_CODE[r.dtype], b, T, h, hd, c, usb, ush,
+        _build.stream_ptr(r.device),
     )
     _build.LAUNCHES["wkv_chunked_bwd"] += 1
     _build.check(code, "wkv_chunked_bwd")

@@ -169,6 +169,7 @@ def test_train_step_runs_the_backward_kernel(cuda):
     (2, 256, 4, 32, 16, "float32", False, True),
     (3, 40, 2, 64, 64, "float32", False, True),     # T = c = 40: one ragged chunk
     (2, 128, 4, 64, 64, "bfloat16", False, True),
+    (2, 4096, 4, 64, 64, "float32", False, True),   # the dS scan across 64 chunks, batch 2
 ])
 def test_wkv_backward_matches_plain(cuda, B, T, H, hd, chunk, dtype, per_row_u, with_state):
     td = getattr(torch, dtype)
@@ -201,6 +202,27 @@ def test_wkv_backward_is_bitwise_repeatable(cuda):
     first, *more = (wkv_chunked_bwd(r, k, v, lw, u, dy, states, chunk=64, S_fin=S_fin,
                                     dS_fin=dS_fin, want_dS0=True) for _ in range(3))
     assert all(torch.equal(a, b) for again in more for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_wkv_backward_takes_unaligned_inputs(cuda):
+    """Contiguous inputs that are not 16-byte aligned (the kernels read in
+    vectors) give the aligned call's gradients bit for bit."""
+    r, k, v, lw, u, S0, dy, dS_fin = bwd_check_inputs(1, 128, 2, 16, seed=4, device=cuda)
+    states = torch.empty((1, 2, 2, 16, 16), device=cuda)
+    _, S_fin = wkv_chunked(r, k, v, lw, u, chunk=64, S0=S0, states=states)
+
+    def shifted(t):  # the same values one element past an aligned base
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    want = wkv_chunked_bwd(r, k, v, lw, u, dy, states, chunk=64, S_fin=S_fin, dS_fin=dS_fin,
+                           want_dS0=True)
+    got = wkv_chunked_bwd(*map(shifted, (r, k, v, lw)), u, shifted(dy), shifted(states),
+                          chunk=64, S_fin=shifted(S_fin), dS_fin=shifted(dS_fin), want_dS0=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

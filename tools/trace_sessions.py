@@ -1,4 +1,4 @@
-"""How often a ``torch.profiler`` session records no device activity over
+"""How often a ``torch.profiler`` session loses device records over
 the exchange cycles of ``chip_smoke.py`` phase E's breakdown, with and
 without PyTorch's CUPTI teardown between sessions.
 
@@ -11,10 +11,10 @@ own: ``default`` with PyTorch's default, which tears CUPTI down after every
 session (PyTorch turns that off itself only for inductor's CUDA graphs,
 citing crashes at CUPTI's re-init), ``keep`` with ``TEARDOWN_CUPTI=0``.
 Each child prints one JSON line: the calls, the sessions each took
-(``core.profiling.TRACES``), the calls whose every session was empty, the
-empty sessions' host events and CUDA runtime launch calls by strategy, and
-the range of the traces' clock-check gaps.  Run from a checkout's root on a machine
-with a card::
+(``core.profiling.TRACES``), the calls with no device record in any
+session, the short sessions' host events, CUDA runtime launch calls and
+device records by strategy, and the range of the traces' clock-check
+gaps.  Run from a checkout's root on a machine with a card::
 
     PYTHONPATH=src python3 tools/trace_sessions.py [--rounds 15] [--env default,keep]
 """
@@ -43,7 +43,7 @@ def child(rounds: int, label: str) -> dict:
     dev = "cuda"
     dom = Domain(make_mesh((4, 2), ("px", "py"), device=dev), INTERIOR, ("px", "py", None))
     x = dom.random(0)
-    empty: dict[str, list] = {name: [] for name in STRATEGIES}
+    short: dict[str, list] = {name: [] for name in STRATEGIES}
     failed: dict[str, int] = {name: 0 for name in STRATEGIES}
     t0 = time.perf_counter()
     for _ in range(rounds):
@@ -54,7 +54,7 @@ def child(rounds: int, label: str) -> dict:
             x = drv.wait(drv.step(x))
             try:
                 b = comb.device_breakdown(drv, x)
-                empty[name] += b["empty_sessions"]
+                short[name] += b["short_sessions"]
             except RuntimeError:
                 failed[name] += 1
             drv.free()
@@ -64,7 +64,7 @@ def child(rounds: int, label: str) -> dict:
                                            "last_device_to_sync_end_us") if t.get(k) is not None]
     return dict(env=label, teardown_cupti=os.environ.get("TEARDOWN_CUPTI", "(unset)"),
                 rounds=rounds, calls=len(traces), retraced=sum(t["sessions"] > 1 for t in traces),
-                failed=failed, empty_sessions=empty, min_gap_us=min(gaps, default=None),
+                failed=failed, short_sessions=short, min_gap_us=min(gaps, default=None),
                 max_gap_us=max(gaps, default=None),
                 sessions_taken=[t["sessions"] for t in traces],
                 seconds=time.perf_counter() - t0, torch=torch.__version__,

@@ -58,6 +58,7 @@ import argparse
 import json
 import math
 import pathlib
+import re
 import statistics
 import sys
 import time
@@ -96,6 +97,11 @@ BWD_CASES = (
     ("bf16", (1, 2048, 32, 64), 64, "bfloat16", True),
 )
 PATH_SHAPE, PATH_CHUNK = (1, 4096, 32, 64), 64
+#: M1's calls between a pair of CUDA events when the profiler lost records
+BACK_TO_BACK = 20
+#: the name substring of every kernel a ``wkv_chunked_bwd`` call launches
+#: (``wkv_bwd_state_kernel``, ``wkv_bwd_scan_kernel``, ``wkv_bwd_chunk_kernel``)
+BWD_KERNELS = "wkv_bwd_"
 #: M3: (config, updates, what was cut)
 FAMILIES = (
     ("hubert-xlarge", {}, "none: full width and depth (48 layers)"),
@@ -107,34 +113,68 @@ FAMILIES = (
 )
 
 
-def wkv_bwd_flops(rows: int, T: int, c: int, hd: int) -> int:
+def wkv_bwd_flops(rows: int, T: int, c: int, hd: int, sb: int = 16) -> int:
     """Operations of the backward, counted from shapes per (row, chunk), in
-    the forward's convention (``chip_smoke.wkv_flops``): four state
-    products (dr's and dk's state terms, dv's, dS_in's: 4 x 2*c*hd*hd);
-    over the strictly lower (t, s) pairs a channel's decay e^(cp_t - cum_s),
-    one subtract and one exponential that the three pairwise sums (A, dr's,
-    dk's) share, and in each sum two multiplies and an add; B = dy.v and
-    dv's A.dy over the lower triangle with the diagonal (2 per product
+    the forward's convention (``chip_smoke.wkv_flops``), for the leanest
+    design known, the kernel's: four state products (dr's and dk's state
+    terms, dv's, G's: 4 x 2*c*hd*hd); over the strictly lower (t, s) pairs,
+    on the diagonal sub-blocks of ``sb`` rows a channel's decay
+    e^(cp_t - cum_s), one subtract and one exponential that the three
+    pairwise sums (A, dr's, dk's) share, and in each sum two multiplies and
+    an add (11 a pair-channel); off them the decay is factored into the
+    operands, so each sum is one multiply-add (6 a pair-channel); B = dy.v
+    and dv's A.dy over the lower triangle with the diagonal (2 per product
     each); and the bonus, du and dlw terms (6*c*hd)."""
-    pairs = hd * c * (c - 1) // 2
-    per_chunk = (8 * c * hd * hd + 2 * pairs + 3 * 3 * pairs + 2 * 2 * hd * c * (c + 1) // 2
-                 + 6 * c * hd)
+    pairs = c * (c - 1) // 2
+    diag = (c // sb) * sb * (sb - 1) // 2 + (c % sb) * (c % sb - 1) // 2
+    per_chunk = (8 * c * hd * hd + hd * (11 * diag + 6 * (pairs - diag))
+                 + 2 * 2 * hd * c * (c + 1) // 2 + 6 * c * hd)
     return rows * (T // c) * per_chunk
 
 
-def _device_ms(fn, kernel: str, fails: list, reps: int = 5) -> tuple[float, float]:
-    """Mean device time of one launch of ``kernel`` (a substring of its
-    name) over ``reps`` calls of ``fn``, by ``core/profiling.
-    device_breakdown`` (which traces a session without device activity
-    again, and raises after the last), and its launches a call in the
-    trace.  A trace without the kernel is a failure: NaN, in ``fails``."""
+def _device_ms(torch, fn, kernel: str, fails: list, reps: int = 5) -> dict:
+    """Device time of one call of ``fn``, summed over the launches of
+    ``kernel`` (a substring of their names) that the call makes, averaged
+    over ``reps`` calls by ``core/profiling.device_breakdown``, with those
+    launches a call and the device ms a call of each kernel by its name from
+    ``kernel`` on.  A complete trace without the kernel is a failure: NaN,
+    in ``fails``.  When every session the profiler traced lost device
+    records, the device time is that of ``BACK_TO_BACK`` calls between a
+    pair of CUDA events, a call's share (the card never waits on the host
+    there), without the split by kernel, and ``device_ms_source`` says so."""
     from repro_torch.core.profiling import device_breakdown
 
-    t = kernel_device_ms(device_breakdown(fn, n_cycles=reps), {"k": (kernel,)})
-    if not t["k_launches"]:
-        fails.append(f"M1: the profiler's trace of {reps} calls holds no {kernel} launch")
-        return math.nan, 0.0
-    return t["k_ms"] / t["k_launches"], t["k_launches"]
+    try:
+        trace = device_breakdown(fn, n_cycles=reps)
+        lost = trace["missing_records"] and (f"{trace['missing_records']} launch calls without "
+                                             f"a device record in {trace['sessions']} sessions")
+    except RuntimeError as exc:  # no device record in any session
+        lost = str(exc)
+    if not lost:
+        t = kernel_device_ms(trace, {"k": (kernel,)})
+        if not t["k_launches"]:
+            fails.append(f"M1: the profiler's trace of {reps} calls holds no {kernel} launch")
+            return dict(device_ms=math.nan, device_launches_a_call=0.0, device_ms_by_kernel={},
+                        device_ms_source="torch.profiler")
+        by = {}
+        for k in trace["kernels"]:
+            if kernel in k["name"]:
+                name = re.match(r"\w+", k["name"][k["name"].index(kernel):]).group(0)
+                by[name] = by.get(name, 0.0) + k["us_per_cycle"] / 1e3
+        return dict(device_ms=t["k_ms"], device_launches_a_call=t["k_launches"],
+                    device_ms_by_kernel=by, device_ms_source="torch.profiler")
+    print(f"M1: the profiler lost device records ({lost}); the device time is CUDA events "
+          f"over {BACK_TO_BACK} back-to-back calls", file=sys.stderr, flush=True)
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(BACK_TO_BACK):
+        fn()
+    end.record()
+    end.synchronize()
+    return dict(device_ms=start.elapsed_time(end) / BACK_TO_BACK, device_launches_a_call=None,
+                device_ms_by_kernel={},
+                device_ms_source=f"CUDA events over {BACK_TO_BACK} back-to-back calls ({lost})")
 
 
 def wkv_backward_checks(torch, dev, fails: list) -> dict:
@@ -142,7 +182,7 @@ def wkv_backward_checks(torch, dev, fails: list) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.wkv import wkv, wkv_bwd_plain, wkv_plain
     from repro_torch.kernels.wkv.ref import BWD_TOL, bwd_check_inputs
-    from repro_torch.kernels.wkv.wkv import wkv_chunked, wkv_chunked_bwd
+    from repro_torch.kernels.wkv.wkv import bwd_workspace_floats, wkv_chunked, wkv_chunked_bwd
 
     out: dict = {"cases": [], "max_abs_err": 0.0}
     for label, (B, T, H, hd), chunk, dtname, with_state in BWD_CASES:
@@ -207,25 +247,31 @@ def wkv_backward_checks(torch, dev, fails: list) -> dict:
     ms.append(events_ms(torch, kernel))
     fwd = lambda: wkv_chunked(r, k, v, lw, u, chunk=PATH_CHUNK)  # noqa: E731
     fwd_states = lambda: wkv_chunked(r, k, v, lw, u, chunk=PATH_CHUNK, states=states)  # noqa: E731
-    device, traced = _device_ms(kernel, "wkv_bwd_kernel", fails)
     out["path"] = dict(
         shape=list(PATH_SHAPE), chunk=PATH_CHUNK, dtype="float32",
-        ms=statistics.median(ms), ms_turns=ms, device_ms=device, device_launches_a_call=traced,
+        ms=statistics.median(ms), ms_turns=ms, **_device_ms(torch, kernel, BWD_KERNELS, fails),
+        scratch_bytes_a_call=4 * bwd_workspace_floats(B, T, H, hd, PATH_CHUNK),
         plain_ms=plain_ms, autograd_plain_ms=autograd_ms,
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes",
         flops=flops, bytes=nbytes,
-        flop_convention="per (row, chunk): 8*c*hd^2 + 11*hd*c(c-1)/2 + 2*hd*c(c+1) + 6*c*hd",
+        flop_convention="per (row, chunk): 8*c*hd^2 + hd*(11*P_diag + 6*P_off) + 2*hd*c(c+1) "
+                        "+ 6*c*hd; P_diag the strictly lower pairs inside 16-row sub-blocks, "
+                        "P_off the rest",
         forward_ms=events_ms(torch, fwd), forward_with_states_ms=events_ms(torch, fwd_states),
         bitwise_repeatable=repeatable,
         timing="CUDA events around one call, median of 5 (plain: 3) after a warm-up; the "
-               "kernel before and after the plain versions; device_ms the kernel's mean a "
-               "launch in a torch.profiler trace of 5 calls (device_breakdown); plain_ms wkv_bwd_plain in f32, autograd_plain_ms autograd's "
-               "backward through wkv_plain's graph")
+               "kernel before and after the plain versions; device_ms a call's kernels "
+               "(wkv_bwd_*) summed, the mean of a torch.profiler trace of 5 calls "
+               "(device_breakdown; device_ms_source says when it lost records and CUDA "
+               "events over back-to-back calls stood in); plain_ms wkv_bwd_plain in f32, autograd_plain_ms "
+               "autograd's backward through wkv_plain's graph")
     out["path"]["device_over_bound"] = out["path"]["device_ms"] / out["path"]["bound_ms"]
     p = out["path"]
     print(f"M1 backward at the training path's shape: {json.dumps(p)}", flush=True)
-    print(f"M1 path backward ms {p['ms']:.4f} (turns {p['ms_turns']}), device {p['device_ms']:.4f}",
-          flush=True)
+    print(f"M1 path backward ms {p['ms']:.4f} (turns {p['ms_turns']}), device {p['device_ms']:.4f} "
+          f"a call over its {p['device_launches_a_call']} kernels "
+          f"{json.dumps(p['device_ms_by_kernel'])} ({p['device_ms_source']}), scratch "
+          f"{p['scratch_bytes_a_call'] / 1e6:.1f} MB a call", flush=True)
     print(f"M1 path plain ms {p['plain_ms']:.4f}, autograd through wkv_plain "
           f"{p['autograd_plain_ms']:.4f}", flush=True)
     print(f"M1 path bound ms {p['bound_ms']:.4f} ({p['bound_by']}), device "
@@ -252,7 +298,7 @@ def rwkv_training(torch, dev, fails: list) -> dict:
     return train_full_width(
         torch, dev, fails, tag="M2", config=RWKV, launches_a_step=launches_a_step,
         layer0=("u", "w_base", "w_lora_a", "w_lora_b", "mu", "mu_c"),
-        groups={"fwd": ("wkv_chunk_kernel",), "bwd": ("wkv_bwd_kernel",)})
+        groups={"fwd": ("wkv_chunk_kernel",), "bwd": (BWD_KERNELS,)})
 
 
 def _attention_sites(cfg) -> tuple[int, int]:
