@@ -8,8 +8,10 @@ the LM serve bench with the collective count of its ring prefill, and the
 last model families: zamba2-1.2b served and sequence-parallel,
 llama-3.2-vision-11b served, hubert-xlarge's encoder, and training:
 stablelm-1.6b at full width through the flash-attention backward kernel,
-rwkv6-1.6b at full width through the WKV backward kernel, and the moe,
-hybrid, vlm and audio families.
+rwkv6-1.6b at full width through the WKV backward kernel, the moe,
+hybrid, vlm and audio families, and stablelm-1.6b data-parallel with
+ZeRO-1 moments on a mesh of stacked ranks, restarted onto a smaller one,
+with gradients through the ring paths.
 
     python3 chip_smoke.py
 
@@ -326,11 +328,28 @@ M. Every family trains (``tools/train_families_lm.py``), after phase L:
    finite losses, ``wkv_chunked_bwd`` launched 48 times a step, a finite
    non-zero gradient on every leaf, ms a step against its floor, peak
    memory, the idle share and the WKV device ms of a traced step; (M3)
-   hubert-xlarge and zamba2-1.2b at full width and depth, phi3.5-moe at 2
+   hubert-xlarge at 24 of 48 layers, zamba2-1.2b at full width and
+   depth, phi3.5-moe at 2
    layers, llama-3.2-vision-11b at one group with its gates open, 3 steps
    each: finite losses, the flash forward and backward launches, every
    leaf's gradient.  The WKV launches of M2 and the flash launches of M3
    join the summary line's under ``"M"``; the WKV backward has its row.
+N. Training on a mesh of stacked ranks (``tools/train_mesh_lm.py``),
+   after phase M: (N1) the ring KV hop's backward (``RingHopFn``) at
+   llama3-8b's and stablelm-1.6b's ring KV shapes on 4 ranks, ``n_parts``
+   1 and 4: the gradient the inverse route of the cotangent, bitwise,
+   through ``gather_pack``/``copy_convert`` (their launches counted) and
+   equal to the ``slice`` packer's; (N2) stablelm-1.6b at full width and
+   depth through the ``Trainer`` on a ``(2, 4)`` ``("data", "model")``
+   mesh with L2's data, steps 0-1, a checkpoint at step 2 restored onto
+   ``(2, 2)``, steps 2-3: the losses against L2's one-card run, the
+   restarted ones against an uninterrupted run switched without a
+   checkpoint (bitwise expected), the state's stacked layout, ms a step,
+   peak memory, a step's collectives and a traced step's idle share;
+   (N3) gradients through ring attention (``comm_packer="cuda"``) and the
+   ring-TP MLP at stablelm-1.6b's width, 2 layers, f32, against the
+   local context's.  The flash launches of N2 and N3's ring runs and the
+   pack kernels' of N3 join the summary line's under ``"N"``.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -393,24 +412,26 @@ TIE_TOL_F32 = 1e-4
 #: phase E's card grid (the heat3d layout is its largest cell at 8 ranks)
 SWEEP_SIZES = ((64, 64, 64), (256, 256, 256), GLOBAL_INTERIOR)
 SWEEP_COUNTS = (4, 8)
-#: timed cycles a repeat in the card grid: 200 x 3 gives each cell 0.1-1 s
+#: timed cycles a repeat in the card grid: 50 x 3 gives each cell 25-250 ms
 #: of timed cycles (20 x 2 gave 3-60 ms, where the cells' run-to-run spread
-#: was about half their time)
-SWEEP_CYCLES, SWEEP_REPEATS = 200, 3
+#: was about half their time; 200 x 3 until phase N joined, when the card
+#: grid took 38.3 s of the script's 925.4)
+SWEEP_CYCLES, SWEEP_REPEATS = 50, 3
 AUTO_CYCLES = 3
 #: decode steps a timing window (phases B and D, eager and graph in turns)
 DECODE_STEPS = 20
 #: phase F: processes of the grid on the one card, its heat3d cells' timed
 #: cycles, the reference check's size, and the p2 sweep slab (phase E's
 #: 8-rank slab) with its cycles (cut from phase E's 200 x 3, from 50 x 3
-#: to 30 x 3 when phase J joined and to 10 x 3 when phase K joined, to keep
-#: the script near half its time limit: a grid cycle crosses gloo on the
-#: host)
+#: to 30 x 3 when phase J joined, to 10 x 3 when phase K joined and to 5 x 3
+#: when phase N joined, to keep the script near half its time limit: a grid
+#: cycle crosses gloo on the host; the heat3d cells' 50 x 3 became 20 x 3
+#: then too)
 GRID_PROCESSES = 2
-GRID_CYCLES, GRID_REPEATS = 50, 3
+GRID_CYCLES, GRID_REPEATS = 20, 3
 GRID_REF_SIZE = (64, 64, 64)
 P2_PARTS = (1, 4)
-P2_CYCLES, P2_REPEATS = 10, 3
+P2_CYCLES, P2_REPEATS = 5, 3
 GRID_TIMEOUT = 600.0
 #: phase G: the elastic runner's steps, the failing step and checkpoint
 #: interval of each leg, and the bound of G4's grid (G1, G2: 8 ranks lose
@@ -853,6 +874,31 @@ def families_training(torch, dev, kernels: dict) -> dict:
     if not kernels["wkv_chunked_bwd"]["launches"]:
         fail("phase M: the training path never launched wkv_chunked_bwd")
     print(f"phase M took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def mesh_training(torch, dev, kernels: dict, l2: dict) -> dict:
+    """Phase N (``tools/train_mesh_lm.py``): the ring hop's backward,
+    stablelm-1.6b data-parallel on a mesh of stacked ranks and restarted
+    onto a smaller one, gradients through the ring paths; the flash
+    launches of N2 and the launches of N3's ring runs join the summary
+    line's under ``"N"``."""
+    import train_lm
+    import train_mesh_lm
+
+    t0 = time.perf_counter()
+    try:
+        out = train_mesh_lm.mesh_phase(torch, dev, l2)
+    except train_lm.PhaseFailure as e:
+        fail(f"phase N: {e}")
+    out["phase_s"] = time.perf_counter() - t0
+    n2, n3 = out["N2"]["launches"], out["N3"]["launches"]
+    for name in ("flash_attention", "flash_attention_bwd", "gather_pack", "copy_convert"):
+        add_launches(kernels[name], "N", n2.get(name, 0) + n3.get(name, 0))
+    for name in ("flash_attention_bwd", "gather_pack", "copy_convert"):
+        if not kernels[name]["launches_by_path"]["N"]:
+            fail(f"phase N: the mesh paths never launched {name}")
+    print(f"phase N took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2573,6 +2619,11 @@ def main() -> int:
 
     # -- M. every family trains: the WKV backward, rwkv6-1.6b, the others --------
     record["families_training"] = families_training(torch, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- N. training on a mesh of stacked ranks, restarted onto a smaller one ----
+    record["mesh_training"] = mesh_training(torch, dev, kernels, record["training"]["L2"])
 
     # -- 5. results -----------------------------------------------------------
     record.update(

@@ -425,10 +425,17 @@ def message_all_to_all(
 # ---------------------------------------------------------------------------
 
 
+def _rank_sum(xa: torch.Tensor) -> torch.Tensor:
+    """The sum over the leading (rank) dim, added in rank order: every
+    element the same left fold whatever the shape, so a reduction cut into
+    partitions gives the bits of the whole one."""
+    return functools.reduce(torch.add, xa.unbind(0))
+
+
 def _psum_scatter(x: torch.Tensor, mesh: VirtualMesh, axis_name: str,
                   scatter_axis: int) -> torch.Tensor:
     k = axis_size(mesh, axis_name)
-    total = _axis_major(x, mesh, axis_name).sum(0)  # (G, *local)
+    total = _rank_sum(_axis_major(x, mesh, axis_name))  # (G, *local)
     if total.shape[scatter_axis + 1] % k:
         raise ValueError(f"axis {scatter_axis} of {tuple(x.shape[1:])} does not split over "
                          f"{k} ranks of axis {axis_name!r}")
@@ -458,11 +465,11 @@ def _psum(x: torch.Tensor, mesh: VirtualMesh, axis_name: str,
         _transport.log_collective("all-reduce", x, k if groups is None else len(groups[0]))
     xa = _axis_major(x, mesh, axis_name)  # (k, G, *local)
     if groups is None:
-        total = xa.sum(0)
+        total = _rank_sum(xa)
         return _from_axis_major(total.expand(k, *total.shape), mesh, axis_name)
     out = torch.empty_like(xa)
     for g in groups:
-        out[g] = xa[g].sum(0)
+        out[g] = _rank_sum(xa[g])
     return _from_axis_major(out, mesh, axis_name)
 
 

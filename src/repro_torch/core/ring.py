@@ -84,6 +84,7 @@ def ring_kv_plan(
     packer: Packer,
     transport: Transport,
     coalesce: bool,
+    shift: int = 1,
 ) -> CommPlan:
     """The persistent plan of one KV hop of :func:`ring_attention`: a
     :class:`PreparedExchange` of :func:`ring_kv_messages` (routes, segment
@@ -95,7 +96,8 @@ def ring_kv_plan(
     the prepared exchange."""
 
     def factory():
-        msgs = ring_kv_messages(kv_shape, axis_name, axis_size(mesh, axis_name), n_parts=n_parts)
+        msgs = ring_kv_messages(kv_shape, axis_name, axis_size(mesh, axis_name), n_parts=n_parts,
+                                shift=shift)
         prepared = PreparedExchange((msgs,), mesh=mesh, local_shape=kv_shape, dtype=dtype,
                                     packer=packer, transport=transport, coalesce=coalesce)
 
@@ -106,7 +108,34 @@ def ring_kv_plan(
         return step
 
     key = ("ring_kv", mesh, axis_name, kv_shape, dtype, n_parts, packer, transport, coalesce)
+    if shift != 1:  # the key of the forward hop is the one it always had
+        key = (*key, shift)
     return PLANS.get_or_init(factory, key=key, device=mesh.device, name="ring_kv")
+
+
+class RingHopFn(torch.autograd.Function):
+    """One KV hop of :func:`ring_attention` under grad: the forward
+    delivers into a fresh buffer through the hop's plan (the same messages,
+    packer kernels and transport), the backward delivers the cotangent
+    along the inverse route (``shift=-1``) through the same kernels.  A hop
+    replaces every element of the buffer by the same element of its ring
+    predecessor, so the inverse route is its exact transpose; a ``bf16``
+    wire casts the cotangent as the forward cast the values (the
+    derivative of the cast).  The ``scaled-int8`` wire's rounding has no
+    useful derivative and raises."""
+
+    @staticmethod
+    def forward(ctx, kv: torch.Tensor, hop: CommPlan, back: CommPlan) -> torch.Tensor:
+        out = kv.clone(memory_format=torch.contiguous_format)
+        hop.start(out)
+        ctx.back = back
+        return out
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        out = grad.clone(memory_format=torch.contiguous_format)
+        ctx.back.start(out)
+        return out, None, None
 
 
 def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -219,14 +248,26 @@ def ring_attention(
 
     if comm == "messages" and ksize > 1:
         # each hop is a Message-table delivery on the stacked KV buffer,
-        # in place: the block is consumed, then the next one arrives over it
+        # in place: the block is consumed, then the next one arrives over it.
+        # Under grad a hop delivers into a fresh buffer (RingHopFn), whose
+        # backward sends the cotangent back along the ring
         kv = torch.stack([k, v], dim=1)
-        hop = ring_kv_plan(mesh, axis_name, tuple(kv.shape[1:]), kv.dtype, n_parts=n_parts,
-                           packer=p, transport=t, coalesce=coalesce)
+        plan = dict(n_parts=n_parts, packer=p, transport=t, coalesce=coalesce)
+        hop = ring_kv_plan(mesh, axis_name, tuple(kv.shape[1:]), kv.dtype, **plan)
+        grad = torch.is_grad_enabled() and kv.requires_grad
+        if grad:
+            if p.name == "scaled-int8":
+                raise NotImplementedError("a gradient through the scaled-int8 ring wire: its "
+                                          "rounding has no useful derivative")
+            back = ring_kv_plan(mesh, axis_name, tuple(kv.shape[1:]), kv.dtype, shift=-1,
+                                **plan)
         for s in range(ksize):
             m, l, acc = consume(m, l, acc, kv[:, 0], kv[:, 1], ((idx - s) % ksize) * skv)
             if s < ksize - 1:
-                hop.start(kv)
+                if grad:
+                    kv = RingHopFn.apply(kv, hop, back)
+                else:
+                    hop.start(kv)
     else:
         # reference path: bare per-tensor permutes.  Partition splits are
         # taken once; the chunks are permuted every hop and consumed as

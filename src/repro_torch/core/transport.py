@@ -713,9 +713,10 @@ class LoopbackTransport(Transport):
         return Route(src, missing)
 
     def start(self, buf, route, out=None):
-        if out is None:
-            out = torch.empty_like(buf)
-        torch.index_select(buf, 0, route.src, out=out)
+        if out is None:  # autograd takes this form: the backward adds the rows back
+            out = torch.index_select(buf, 0, route.src)
+        else:
+            torch.index_select(buf, 0, route.src, out=out)
         if route.missing is not None:
             out.masked_fill_(route.missing.view(-1, *([1] * (buf.dim() - 1))), 0)
         return out

@@ -33,8 +33,8 @@ from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: why the pack kernels refuse a gradient (:func:`_build.refuse_grad`)
-NO_GRAD = ("a gradient through the exchange and ring paths waits for training on a mesh "
-           "(ROADMAP Queue 1 item 21)")
+NO_GRAD = ("a gradient through a ring-attention KV hop runs through RingHopFn "
+           "(core.ring), which sends the cotangent back along the ring through these kernels")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {

@@ -10,8 +10,13 @@ Every family trains (``--arch rwkv6-1.6b``, ``phi3.5-moe-42b-a6.6b``,
 ``zamba2-1.2b``, ``llama-3.2-vision-11b``, ``hubert-xlarge``, ...).
 
 Without ``--device`` it runs on the card and raises where there is none.
-``--mesh production`` (training on a mesh) raises ``NotImplementedError``:
-ROADMAP Queue 1 item 21.
+``--mesh production`` trains on the production mesh's axes, (16, 16) over
+``("data", "model")``, its 256 ranks stacked on ``--device``
+(data-parallel with ZeRO-1 moments, ``moe_mode="ep"`` for the moe
+family); meant for ``--reduced``::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \
+        --reduced --mesh production --device cpu --steps 2
 """
 
 from __future__ import annotations
@@ -52,11 +57,12 @@ def main(argv: list[str] | None = None) -> TrainResult:
     if args.reduced:
         cfg = cfg.reduced()
 
+    model = build_model(cfg, args.device)
     ctx = LOCAL
     if args.mesh == "production":
         from repro_torch.launch.mesh import data_axes_of, make_production_mesh
 
-        mesh = make_production_mesh()
+        mesh = make_production_mesh(device=model.device)
         ctx = ParallelContext(mesh=mesh, data_axes=data_axes_of(mesh),
                               moe_mode="ep" if cfg.family == "moe" else "dense")
 
@@ -73,7 +79,6 @@ def main(argv: list[str] | None = None) -> TrainResult:
     )
     injector = FailureInjector(
         fail_at_steps=(args.fail_at,) if args.fail_at >= 0 else ())
-    model = build_model(cfg, args.device)
     result = Trainer(model, run_cfg, ctx=ctx, injector=injector).run()
     print(f"trained {len(result.losses)} steps on {model.device}: "
           f"loss {result.losses[0]:.4f} -> {result.losses[-1]:.4f}, "

@@ -205,32 +205,67 @@ def run_with_restarts(
 # ---------------------------------------------------------------------------
 
 
+@dataclasses.dataclass(frozen=True)
+class Pinned:
+    """The spec of a leaf that only the ranks at ``coords`` along the mesh
+    axes ``axes`` hold, split among them as ``spec`` says: its stacked
+    layout has size 1 on those axes.  ZeRO-1 may split a stacked subtree's
+    layer axis over the data axes (stablelm-1.6b's 24 layers over 2 data
+    ranks), and the port keeps a leaf a layer, so one layer's moments live
+    on the data rank that holds the layer
+    (:func:`repro_torch.train.train_loop.stacked_specs`)."""
+
+    spec: tuple
+    axes: tuple[str, ...]
+    coords: tuple[int, ...]
+
+    def holders(self, mesh: VirtualMesh) -> VirtualMesh:
+        """The mesh of the ranks that hold the leaf (a one-process mesh)."""
+        if mesh.processes > 1:
+            raise ValueError("a pinned leaf on a mesh over several processes")
+        sizes = tuple(1 if n in self.axes else k for n, k in zip(mesh.axis_names,
+                                                                   mesh.axis_sizes))
+        return VirtualMesh(sizes, mesh.axis_names, mesh.device)
+
+
+def _names(entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names: none, one, or a tuple of them
+    (split over their row-major flattening)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
 def _axis_plan(shape: Sequence[int], mesh: VirtualMesh, spec: Spec):
     """``(split dims, position of each mesh axis among them, local dims)``
     of a global shape under ``spec``: every split array axis ``a`` becomes
-    ``(k, shape[a] // k)``."""
+    ``(k, shape[a] // k)``, or ``(k1, k2, ..., shape[a] // (k1 k2 ...))``
+    for an entry that names several axes."""
     spec = tuple(spec)
     if len(spec) != len(shape):
         raise ValueError(f"spec {spec} does not name the {len(shape)} axes of {tuple(shape)}")
     dims, mesh_pos, local_pos = [], {}, []
-    for a, name in enumerate(spec):
-        if name is not None:
+    for a, entry in enumerate(spec):
+        k = 1
+        for name in _names(entry):
             if name in mesh_pos:
                 raise ValueError(f"mesh axis {name!r} splits two array axes in {spec}")
-            k = mesh.shape[name]
-            if shape[a] % k:
-                raise ValueError(f"axis {a} of {tuple(shape)} does not split over {name}={k}")
             mesh_pos[name] = len(dims)
-            dims.append(k)
+            dims.append(mesh.shape[name])
+            k *= mesh.shape[name]
+        if shape[a] % k:
+            raise ValueError(f"axis {a} of {tuple(shape)} does not split over {entry}={k}")
         local_pos.append(len(dims))
-        dims.append(shape[a] // (mesh.shape[name] if name else 1))
+        dims.append(shape[a] // k)
     return dims, mesh_pos, local_pos
 
 
-def _to_stacked(t: torch.Tensor, mesh: VirtualMesh, spec: Spec) -> torch.Tensor:
+def _to_stacked(t: torch.Tensor, mesh: VirtualMesh, spec: Spec | Pinned) -> torch.Tensor:
     """A global tensor in ``mesh``'s stacked layout, materialized: ranks
     along a mesh axis the spec does not name hold copies; on a grid only
     this process's rows, in coordinate order."""
+    if isinstance(spec, Pinned):
+        mesh, spec = spec.holders(mesh), spec.spec
     dims, mesh_pos, local_pos = _axis_plan(t.shape, mesh, spec)
     t = t.reshape(dims)
     order = []
@@ -246,25 +281,30 @@ def _to_stacked(t: torch.Tensor, mesh: VirtualMesh, spec: Spec) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _from_stacked(t: torch.Tensor, mesh: VirtualMesh, spec: Spec) -> torch.Tensor:
+def _from_stacked(t: torch.Tensor, mesh: VirtualMesh, spec: Spec | Pinned) -> torch.Tensor:
     """Inverse of :func:`_to_stacked` on one process's whole mesh (rank 0
     of a mesh axis the spec does not name)."""
+    if isinstance(spec, Pinned):
+        mesh, spec = spec.holders(mesh), spec.spec
     if mesh.processes > 1:
         raise ValueError("a stacked leaf of a multi-process mesh holds only its own rows")
     m = len(mesh.axis_names)
     if tuple(t.shape[:m]) != mesh.axis_sizes or t.dim() != m + len(spec):
         raise ValueError(f"stacked {tuple(t.shape)} is not ({mesh.axis_sizes}, <{len(spec)} dims>)")
+    named = {n for entry in spec for n in _names(entry)}
     names = list(mesh.axis_names)
     for i in reversed(range(m)):
-        if names[i] not in spec:
+        if names[i] not in named:
             t = t.select(i, 0)
             names.pop(i)
     order, shape = [], []
-    for a, name in enumerate(spec):
-        if name is not None:
+    for a, entry in enumerate(spec):
+        k = 1
+        for name in _names(entry):
             order.append(names.index(name))
+            k *= mesh.shape[name]
         order.append(len(names) + a)
-        shape.append(t.shape[len(names) + a] * (mesh.shape[name] if name else 1))
+        shape.append(t.shape[len(names) + a] * k)
     return t.permute(order).reshape(shape)
 
 
@@ -287,7 +327,8 @@ def reshard_state(state: Any, new_mesh: VirtualMesh, specs: Any, *,
                   old_mesh: VirtualMesh | None = None) -> Any:
     """Elastic re-mesh: every leaf of ``state`` in ``new_mesh``'s stacked
     layout on ``new_mesh.device``, split as ``specs`` says (a tree beside
-    ``state``: for each leaf one mesh-axis name or ``None`` per array axis).
+    ``state``: for each leaf one entry per array axis, a mesh-axis name, a
+    tuple of names or ``None``; or a :class:`Pinned` spec).
 
     A leaf is a global array (a tensor on any device, or numpy); with
     ``old_mesh`` it is instead ``old_mesh``'s stacked layout under the same

@@ -23,7 +23,7 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "serve_bench_lm.py", ROOT / "tools" / "families_lm.py",
     ROOT / "tools" / "train_lm.py", ROOT / "examples" / "train_lm_torch.py",
     ROOT / "tools" / "trace_sessions.py", ROOT / "tools" / "time_flash_bwd.py",
-    ROOT / "tools" / "train_families_lm.py"]
+    ROOT / "tools" / "train_families_lm.py", ROOT / "tools" / "train_mesh_lm.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -75,7 +75,7 @@ def test_port_has_modules_and_smoke_script():
                      "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/train.py",
                      "tools/train_lm.py", "examples/train_lm_torch.py",
                      "tools/trace_sessions.py", "tools/time_flash_bwd.py",
-                     "tools/train_families_lm.py"):
+                     "tools/train_families_lm.py", "tools/train_mesh_lm.py"):
         assert required in names
 
 

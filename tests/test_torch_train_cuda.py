@@ -4,7 +4,8 @@ plain attention, the WKV backward kernel ``wkv_chunked_bwd`` against its
 plain version ``wkv_bwd_plain`` (bitwise repeatable, and what it refuses),
 the refusal of gradients by the kernel wrappers that have no backward, and
 reduced stablelm-1.6b and rwkv6-1.6b train steps whose backward runs the
-kernels.  No JAX here: the parity against the JAX package is the CPU
+kernels; the ring KV hop's backward through the pack kernels, and the
+mesh step on the card against the one-device step.  No JAX here: the parity against the JAX package is the CPU
 files' (``tests/test_torch_train_*.py``, ``tests/test_torch_kernels_wkv_bwd.py``).
 
 Tolerances, stated: ``dq``, ``dk``, ``dv`` within relative L2 2e-2 (bf16:
@@ -124,7 +125,7 @@ def test_wrappers_without_backward_refuse_grad(cuda):
     assert isinstance(y.grad_fn, WkvChunkedFn._backward_cls) and S.grad_fn is y.grad_fn
     assert torch.autograd.grad(y.sum() + S.sum(), x)[0].abs().sum() > 0
     blk = torch.randn((1, 6, 6, 6), device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(NotImplementedError, match="RingHopFn"):
         copy_convert(blk, torch.empty((1, 6, 6, 6), device=cuda))
     with pytest.raises(NotImplementedError, match="differentiates"):
         stencil27(blk, torch.ones((3, 3, 3), device=cuda), torch.empty((1, 4, 4, 4), device=cuda))
@@ -288,3 +289,63 @@ def test_rwkv_train_step_runs_the_wkv_backward(cuda):
             assert not _build.LAUNCHES
     assert math.isfinite(losses["kernel"])
     assert abs(losses["kernel"] - losses["plain"]) <= 1e-3 * abs(losses["plain"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_parts", [1, 4])
+def test_ring_hop_backward_runs_the_pack_kernels(cuda, n_parts):
+    """``RingHopFn`` on the card with the ``cuda`` packer: the output is
+    the ring predecessor's block, the gradient the cotangent sent back,
+    both bitwise (and equal to the ``slice`` packer's), and the backward
+    launches ``gather_pack`` and ``copy_convert``."""
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.core.ring import RingHopFn, ring_kv_plan
+    from repro_torch.core.transport import resolve_packer, resolve_transport
+
+    mesh = make_mesh((1, 4), ("data", "model"), device=cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    kv = torch.randn((4, 2, 1, 256, 8, 64), generator=gen, device=cuda, dtype=torch.bfloat16)
+    cot = torch.randn(kv.shape, generator=gen, device=cuda, dtype=torch.bfloat16)
+    src = torch.tensor([3, 0, 1, 2], device=cuda)
+    outs = {}
+    for packer in ("cuda", "slice"):
+        plan = dict(n_parts=n_parts, packer=resolve_packer(packer),
+                    transport=resolve_transport("loopback"), coalesce=True)
+        hop = ring_kv_plan(mesh, "model", tuple(kv.shape[1:]), kv.dtype, **plan)
+        back = ring_kv_plan(mesh, "model", tuple(kv.shape[1:]), kv.dtype, shift=-1, **plan)
+        x = kv.clone().requires_grad_(True)
+        y = RingHopFn.apply(x, hop, back)
+        _build.reset_launches()
+        (g,) = torch.autograd.grad(y, x, cot)
+        torch.cuda.synchronize()
+        if packer == "cuda":
+            assert _build.LAUNCHES["gather_pack"] == n_parts
+            assert _build.LAUNCHES["copy_convert"] == 2 * n_parts  # K and V each round
+        assert torch.equal(y, kv[src]) and torch.equal(g[src], cot)
+        outs[packer] = (y, g)
+    assert all(torch.equal(a, b) for a, b in zip(outs["cuda"], outs["slice"]))
+
+
+@pytest.mark.cuda
+def test_mesh_step_on_the_card_matches_the_one_device_step(cuda):
+    """Reduced stablelm-1.6b (bf16, head dim 64) on a ``(2, 4)`` mesh of
+    stacked ranks on the card: the flash kernels run in each data rank's
+    loss, and two steps' losses are within 1e-3 relative of the one-device
+    ``Trainer``'s on the same weights and data."""
+    from repro_torch.configs.base import RunConfig, ShapeConfig
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.train.train_loop import Trainer
+
+    cfg = get_config("stablelm-1.6b").reduced().with_updates(head_dim=64)
+    model = build_model(cfg, cuda)
+    run = RunConfig(model=cfg, shape=ShapeConfig("mesh", 64, 4, "train"),
+                    optimizer=OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10),
+                    steps=2, log_every=0)
+    one = Trainer(model, run).run()
+    _build.reset_launches()
+    ctx = ParallelContext(mesh=make_mesh((2, 4), ("data", "model"), device=cuda))
+    mesh = Trainer(model, run, ctx=ctx).run()
+    assert _build.LAUNCHES["flash_attention_bwd"] > 0
+    for a, b in zip(mesh.losses, one.losses):
+        assert math.isfinite(a) and abs(a - b) <= 1e-3 * abs(b)

@@ -28,13 +28,11 @@ from repro.models import build_model as j_build_model
 from repro.train import train_loop as JT
 from repro_torch.configs import get_config
 from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
-from repro_torch.core.mesh import make_mesh
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.kernels import _build
 from repro_torch.launch import train as launch_train
 from repro_torch.models import build_model
 from repro_torch.models.convert import train_state_from_jax, train_state_to_numpy
-from repro_torch.parallel.context import ParallelContext
 from repro_torch.train.fault_tolerance import FailureInjector
 from repro_torch.train.train_loop import Trainer, make_train_step
 
@@ -123,16 +121,6 @@ def test_restart_reproduces_uninterrupted_run_bitwise(tmp_path, async_checkpoint
     assert faulty.losses == clean.losses[:3] + clean.losses[2:]
     assert faulty.checksum == clean.checksum
     assert clean.losses[-1] < clean.losses[0]
-
-
-def test_trainer_and_step_refuse_a_mesh():
-    model = build_model(get_config(ARCH).reduced(), "cpu")
-    ctx = ParallelContext(mesh=make_mesh((1, 2), ("data", "model"), device="cpu"))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        make_train_step(model, OptimizerConfig(), ctx)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        launch_train.main(["--arch", ARCH, "--reduced", "--device", "cpu", "--mesh",
-                           "production", "--steps", "1"])
 
 
 def test_launch_train_cli_on_the_cpu(capsys):

@@ -411,7 +411,8 @@ def llama_ring(torch, dev, model, params, prompts, local_tokens, *, slots: int, 
             return prefill(c)
 
     fns[f"ring n_parts={H_PARTS[-1]}, KV exchange built each call"] = built_each_call
-    out["prefill_ms"] = host_ms_turns(torch, fns)
+    # one round of turns (two calls each): the ring prefills take 0.3-1.1 s
+    out["prefill_ms"] = host_ms_turns(torch, fns, rounds=1)
     out["exchange"] = {}
     for n, ctx in ctxs.items():
         trace = device_breakdown(lambda c=ctx: prefill(c), n_cycles=1)

@@ -30,8 +30,9 @@
   gradients must be finite and non-zero on every parameter leaf (``u``,
   ``w_base``, ``w_lora_a``/``w_lora_b`` and ``mu`` among them).
 * M3, the other families, 3 steps each of 2 x 4096 tokens in the
-  config's microbatches (cut to divide the batch): hubert-xlarge (0.95 B)
-  and zamba2-1.2b (1.17 B) at full width and depth; phi3.5-moe at full
+  config's microbatches (cut to divide the batch): hubert-xlarge at full
+  width and 24 of 48 layers (cut for the script's time), zamba2-1.2b
+  (1.17 B) at full width and depth; phi3.5-moe at full
   width and 2 of 32 layers (about 16 bytes a parameter with the f32
   moments and accumulators: 2 layers and the embeddings are 2.9 B
   parameters, 46 GB, where 3 would be 67 GB before activations);
@@ -104,7 +105,8 @@ BACK_TO_BACK = 20
 BWD_KERNELS = "wkv_bwd_"
 #: M3: (config, updates, what was cut)
 FAMILIES = (
-    ("hubert-xlarge", {}, "none: full width and depth (48 layers)"),
+    ("hubert-xlarge", {"n_layers": 24},
+     "depth 48 -> 24 layers (the script's time, when phase N joined)"),
     ("zamba2-1.2b", {}, "none: full width and depth (38 layers)"),
     ("phi3.5-moe-42b-a6.6b", {"n_layers": 2},
      "depth 32 -> 2 layers (the state one card holds: about 16 bytes a parameter)"),

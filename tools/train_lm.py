@@ -34,7 +34,7 @@
   ``wq``/``wk``/``wv`` included.  :func:`train_full_width` does the same
   for rwkv6-1.6b in phase M (``tools/train_families_lm.py``).
 * L3, restart on the card: stablelm-1.6b's width with 2 layers, 6 steps,
-  a checkpoint every 2 (5.1 GB each, the latest one kept, in a temporary
+  a checkpoint every 4 (5.1 GB each, the latest one kept, in a temporary
   directory under ``build/`` removed after), an
   injected failure at step 4; the restarted run restores step 4 (so it
   logs 6 losses), finishes, and its losses are within 1e-3 relative of an
@@ -76,7 +76,9 @@ BF16_FLOP_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 STABLELM = "stablelm-1.6b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 6
-RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 2, 6, 2, 4
+#: L3: a checkpoint every 4 steps (every 2 until phase N joined: two 5.1 GB
+#: saves fewer), the failure at step 4 restores step 4's
+RESTART_LAYERS, RESTART_STEPS, RESTART_EVERY, RESTART_FAIL = 2, 6, 4, 4
 #: (label, (B, Sq, Hq, Hkv, D, Skv), dtype, causal); Skv None: Sq
 BWD_CASES = (
     ("stablelm-1.6b training shape", (2, 4096, 32, 32, 64, None), "bfloat16", True),
