@@ -229,11 +229,12 @@ H. The partitioned pipeline on the LM side (``tools/ring_lm.py``), at the
    (``launches_by_path``).
 I. The MoE model (``tools/moe_lm.py``), after phase D, on a ``(1, 16)``
    ``VirtualMesh`` over ``("data", "model")`` where expert-parallel: (I1)
-   phi3.5-moe at full width, 16 of its 32 layers (random bf16 weights from
-   seed 0, 42 GB), served through ``ServingEngine(max_slots=4,
-   max_len=2048)`` under the local context: phase B's 8 requests, each
-   prefilled at its exact length, 16 new tokens; ``flash_attention``
-   launched 16 times a prefill, the dropless decode step the captured
+   phi3.5-moe at full width, 8 of its 32 layers (random bf16 weights from
+   seed 0, 21 GB; 16 layers until phase O joined), served through
+   ``ServingEngine(max_slots=4, max_len=2048)`` under the local context:
+   phase B's 8 requests, each prefilled at its exact length, 16 new
+   tokens; ``flash_attention`` launched once a layer a prefill, the
+   dropless decode step the captured
    graph; tokens against a plain-attention engine (equal or a near tie)
    and against the eager decode (equal); prefill ms at 2000 tokens, decode
    ms eager and graph beside the weights' bytes floor, tokens per second,
@@ -274,10 +275,11 @@ J. The LM serve bench and the paper's communication accounting
    ring prefill beside its measured time.  Its launches join the summary
    line's under ``"J"``.
 K. The last model families (``tools/families_lm.py``), after phase J, at
-   full width and depth (random bf16 weights from seed 0): (K1) zamba2-1.2b
-   (2.4 GB) through ``ServingEngine(max_slots=4, max_len=2048)``, 8
-   requests of 5-2016 prompt tokens (lengths the SSD scan takes), 16 new
-   each: ``flash_attention`` 6 times a prefill, tokens against the
+   full width and half depth since phase O joined (random bf16 weights
+   from seed 0): (K1) zamba2-1.2b at 19 of 38 layers through
+   ``ServingEngine(max_slots=4, max_len=2048)``, 8 requests of 5-2016
+   prompt tokens (lengths the SSD scan takes), 16 new each:
+   ``flash_attention`` once a group of 6 a prefill, tokens against the
    plain-attention engine (equal or a near tie) and the eager decode
    (equal), prefill ms, decode ms eager and graph, tokens per second, idle
    shares; (K2) its 2048-token logits in f32 on a ``(1, 8)`` ring under
@@ -286,11 +288,11 @@ K. The last model families (``tools/families_lm.py``), after phase J, at
    (ghost cells zeroed, the incoming SSD state dropped) must exceed, and
    ``seq_left_halo`` at its conv shapes with packer ``cuda`` bitwise equal
    to ``slice`` at ``n_parts`` 1 and 3, launches counted; (K3)
-   llama-3.2-vision-11b (19.6 GB) with K1's requests and checks,
-   ``flash_attention`` 40 times a prefill, and with the gates at 0.5 and a
+   llama-3.2-vision-11b at 20 of 40 layers with K1's requests and checks,
+   ``flash_attention`` once a layer a prefill, and with the gates at 0.5 and a
    random image one prefill and one logits call against plain attention,
-   the logits moved from the closed gates'; (K4) hubert-xlarge (1.9 GB)
-   ``encode`` of 4 x 1000 frames, ``flash_attention`` 48 times at head dim
+   the logits moved from the closed gates'; (K4) hubert-xlarge at 24 of 48
+   layers ``encode`` of 4 x 1000 frames, ``flash_attention`` once a layer at head dim
    80, against plain attention, ms a call.  Its flash launches join the
    summary line's under ``"K"``.
 L. Training (``tools/train_lm.py``), after phase G, the last: (L1) the flash
@@ -328,8 +330,8 @@ M. Every family trains (``tools/train_families_lm.py``), after phase L:
    finite losses, ``wkv_chunked_bwd`` launched 48 times a step, a finite
    non-zero gradient on every leaf, ms a step against its floor, peak
    memory, the idle share and the WKV device ms of a traced step; (M3)
-   hubert-xlarge at 24 of 48 layers, zamba2-1.2b at full width and
-   depth, phi3.5-moe at 2
+   hubert-xlarge at 12 of 48 layers, zamba2-1.2b at full width and
+   12 of 38 layers, phi3.5-moe at 2
    layers, llama-3.2-vision-11b at one group with its gates open, 3 steps
    each: finite losses, the flash forward and backward launches, every
    leaf's gradient.  The WKV launches of M2 and the flash launches of M3
@@ -350,6 +352,19 @@ N. Training on a mesh of stacked ranks (``tools/train_mesh_lm.py``),
    ring-TP MLP at stablelm-1.6b's width, 2 layers, f32, against the
    local context's.  The flash launches of N2 and N3's ring runs and the
    pack kernels' of N3 join the summary line's under ``"N"``.
+O. The dry-run against the card (``tools/dryrun_lm.py``), after phase N,
+   reading L2's record: (O1) the meta routes of ``flash_attention``,
+   ``flash_attention_bwd``, ``wkv_chunked`` and ``wkv_chunked_bwd``
+   through ``FlashAttentionFn``/``WkvChunkedFn`` against the kernels at
+   (1, 4096, 32, 64) causal, GQA (1, 2048, 32/8, 128), D = 80 (4, 1000,
+   16, 80) bf16 and WKV (1, 4096, 32, 64) f32 chunk 64: the outputs'
+   shapes and dtypes equal, no launch, the counted FLOPs equal the
+   bound's; (O2) ``dryrun.run_cell("stablelm-1.6b", "train_4k", False)``
+   on the ``(16, 16)`` meta mesh, its record, H100 roofline terms and
+   seconds; (O3) the dry-run of L2's configuration: its argument bytes
+   (in the allocator's 512-byte blocks) equal to L2's placed state and
+   batch, its peak within 25 % of L2's ``max_memory_allocated``, its
+   roofline step beside L2's ms.  Its comparison launches are not counted.
 5. Print the ``kernels`` JSON line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.  The full record also goes to
    ``chiprun_out/chip_smoke.json``.
@@ -902,6 +917,25 @@ def mesh_training(torch, dev, kernels: dict, l2: dict) -> dict:
     return out
 
 
+def dryrun_check(torch, dev, l2: dict) -> dict:
+    """Phase O (``tools/dryrun_lm.py``): the LM kernels' meta routes against
+    the kernels on the card, stablelm-1.6b's production train cell on the
+    meta mesh with its H100 roofline, and the dry-run of L2's configuration
+    against L2's memory.  It launches no kernel of the main paths (its
+    comparison launches are not counted)."""
+    import dryrun_lm
+    import train_lm
+
+    t0 = time.perf_counter()
+    try:
+        out = dryrun_lm.dryrun_phase(torch, dev, l2)
+    except train_lm.PhaseFailure as e:
+        fail(f"phase O: {e}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase O took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def add_launches(kd: dict, path: str, n: int) -> None:
     """Count ``n`` launches of a kernel on one more main path of the
     summary line: ``launches`` is the sum over ``launches_by_path``."""
@@ -910,24 +944,14 @@ def add_launches(kd: dict, path: str, n: int) -> None:
     kd["launches"] = sum(by.values())
 
 
-def wkv_flops(rows: int, T: int, c: int, hd: int) -> int:
-    """Operations of the chunked scan, counted from shapes per (row, chunk):
-    the state term and the state update (2 x 2*c*hd*hd), the pairwise term
-    over the strictly lower (t, s) pairs (a subtract, an exponential, two
-    multiplies and an add per channel), A.v over the lower triangle with
-    the diagonal (2 per product), and the bonus (3*c*hd)."""
-    per_chunk = 4 * c * hd * hd + 5 * hd * c * (c - 1) // 2 + c * (c + 1) * hd + 3 * c * hd
-    return rows * (T // c) * per_chunk
-
-
 def wkv_flops_factored(rows: int, T: int, c: int, hd: int) -> int:
     """Operations of the factored form the kernel computes, counted as
-    ``wkv_flops`` but for the pairwise term: in the diagonal 16-row
+    ``costs.wkv_flops`` but for the pairwise term: in the diagonal 16-row
     sub-blocks a subtract, an exponential, two multiplies and an add per
     (t, s, channel), and between sub-blocks one multiply and one add (the
     three factors are taken once a row or a sub-block, and, as in
-    ``wkv_flops``, the decays of r and k are not counted).  Information
-    beside the bound, whose convention stays ``wkv_flops``."""
+    ``costs.wkv_flops``, the decays of r and k are not counted).  Information
+    beside the bound, whose convention stays ``costs.wkv_flops``."""
     sizes = [min(16, c - 16 * p) for p in range(-(-c // 16))]
     diag = sum(n * (n - 1) // 2 for n in sizes)
     off = c * (c - 1) // 2 - diag
@@ -959,6 +983,7 @@ def check_wkv(torch, dev, kernels: dict) -> dict:
     serving path's shapes, timed at prefill T = 2048 and decode batch 4."""
     from time_copy_convert import host_us
 
+    from repro_torch.kernels.costs import wkv_cost
     from repro_torch.kernels.wkv import wkv_chunked, wkv_plain
 
     gen = torch.Generator(dev).manual_seed(11)
@@ -1020,8 +1045,9 @@ def check_wkv(torch, dev, kernels: dict) -> dict:
         ms=time_ms(torch, run), ms_batched=time_ms_batched(torch, run),
         device_ms=device_ms(torch, run, flush=none), host_us=host_us(torch, run, calls=50),
         plain_ms=time_ms(torch, lambda: wkv_plain(r, k, v, lw, u, chunk=chunk), reps=3),
-        flops=wkv_flops(H, 2048, chunk, hd), flops_factored=wkv_flops_factored(H, 2048, chunk, hd),
-        bytes=5 * r.numel() * 4 + (u.numel() + H * hd * hd) * 4,
+        flops=wkv_cost(1, 2048, H, hd, chunk, itemsize=4, u_numel=u.numel())[0],
+        flops_factored=wkv_flops_factored(H, 2048, chunk, hd),
+        bytes=wkv_cost(1, 2048, H, hd, chunk, itemsize=4, u_numel=u.numel())[1],
         exps_per_head_chunk=wkv_exps(chunk, hd))
     (dr, dk, dv, dlw, du), dS0 = inputs(4, 1, state=True)
     drun = lambda: wkv_chunked(dr, dk, dv, dlw, du, chunk=chunk, S0=dS0)  # noqa: E731
@@ -1029,8 +1055,9 @@ def check_wkv(torch, dev, kernels: dict) -> dict:
         ms=time_ms(torch, drun), ms_batched=time_ms_batched(torch, drun),
         device_ms=device_ms(torch, drun, flush=none), host_us=host_us(torch, drun),
         plain_ms=time_ms(torch, lambda: wkv_plain(dr, dk, dv, dlw, du, chunk=chunk, S0=dS0)),
-        flops=wkv_flops(4 * H, 1, 1, hd), flops_factored=wkv_flops_factored(4 * H, 1, 1, hd),
-        bytes=5 * dr.numel() * 4 + du.numel() * 4 + 2 * dS0.numel() * 4)
+        flops=wkv_cost(4, 1, H, hd, 1, itemsize=4, u_numel=du.numel(), S0=True)[0],
+        flops_factored=wkv_flops_factored(4 * H, 1, 1, hd),
+        bytes=wkv_cost(4, 1, H, hd, 1, itemsize=4, u_numel=du.numel(), S0=True)[1])
     for d in (prefill, decode):
         t_ops, t_bytes = d["flops"] / F32_FLOP_PER_S * 1e3, d["bytes"] / HBM_BYTES_PER_S * 1e3
         d.update(bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops > t_bytes else "bytes")
@@ -2051,6 +2078,17 @@ def main() -> int:
 
     record: dict = {}
     t_main = time.perf_counter()
+    t_lap = [t_main]
+    phase_s: dict[str, float] = {}
+
+    def lap(name: str) -> None:
+        """The seconds since the last lap (or the start): printed and recorded
+        under ``phase_s``."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"chip_smoke: {name} took {phase_s[name]:.1f} s", flush=True)
+
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2087,6 +2125,7 @@ def main() -> int:
     def bound_ms(nbytes: int) -> float:
         return nbytes / HBM_BYTES_PER_S * 1e3
 
+    lap("1 build, domain")
     # -- 2a. copy_convert (pack and unpack of strided face windows) --------
     worst = 0.0
     faces = {"pz": (slice(1, 2), slice(None)), "py": (slice(None), slice(1, 2))}
@@ -2292,6 +2331,7 @@ def main() -> int:
     del xp, xp5, outk, xbf, outbf, block, interior, x, xb
     torch.cuda.empty_cache()
 
+    lap("2 pack and stencil kernels")
     # -- 3. exchange matrix at full size ------------------------------------
     interior = torch.randn(GLOBAL_INTERIOR, generator=torch.Generator(dev).manual_seed(1), device=dev)
     want = reference_exchange(dom, interior)
@@ -2316,6 +2356,7 @@ def main() -> int:
     del want
     torch.cuda.empty_cache()
 
+    lap("3 exchange matrix")
     # -- 4. heat3d through comb_measure: the main path ----------------------
     weights = jacobi_weights().numpy()
     update = heat3d_update(weights, dev)
@@ -2413,9 +2454,11 @@ def main() -> int:
               f"{top}; direct_copy {sum(k['launches_per_cycle'] for k in copies):g} a cycle, "
               f"{b['direct_copy_us_per_cycle']:.0f} us", flush=True)
 
+    lap("4 heat3d")
     # -- A. flash_attention against its plain version ------------------------
     del drv, plain, ref_x, x2, interior, weights, update, dom, mesh
     torch.cuda.empty_cache()
+    from repro_torch.kernels.costs import flash_cost
     from repro_torch.kernels.flash_attention import attention_plain, flash_attention
 
     gen = torch.Generator(dev).manual_seed(7)
@@ -2477,8 +2520,9 @@ def main() -> int:
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
     torch.cuda.synchronize()
     sdpa_err = (sdpa.transpose(1, 2).float() - attention_plain(q, k, v).float()).abs().max().item()
-    flops = 2 * q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] * q.shape[3]
-    nbytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops, nbytes = flash_cost(q.shape[0], q.shape[1], q.shape[2], k.shape[1], k.shape[2],
+                               q.shape[3], causal=True, itemsize=q.element_size())
+
     def kernel():
         return flash_attention(q, k, v, causal=True)
 
@@ -2543,8 +2587,8 @@ def main() -> int:
         fail(f"flash_attention D=80: the relative-norm check cannot see a skipped kv tile {rel80}")
     del q32, k32, v32, fault, got, want
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    flops = 4 * q.shape[0] * q.shape[2] * q.shape[1] * k.shape[1] * q.shape[3]
-    nbytes = 2 * (q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops, nbytes = flash_cost(q.shape[0], q.shape[1], q.shape[2], k.shape[1], k.shape[2],
+                               q.shape[3], causal=False, itemsize=q.element_size())
 
     def kernel80():
         return flash_attention(q, k, v, causal=False)
@@ -2568,25 +2612,30 @@ def main() -> int:
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
+    lap("A")
     # -- B. serving llama3-8b at full width: the second main path ------------
     record["serving"] = serve_llama(torch, dev, kernels)
     gc.collect()
     torch.cuda.empty_cache()  # the llama3-8b weights go before phase D
 
+    lap("B with H1-H2")
     # -- C. wkv_chunked against its plain version ----------------------------
     check_wkv(torch, dev, kernels)
     torch.cuda.empty_cache()
 
+    lap("C")
     # -- D. serving rwkv6-1.6b at full width: the third main path ------------
     record["rwkv_serving"] = serve_rwkv(torch, dev, kernels)
     gc.collect()
     torch.cuda.empty_cache()  # the rwkv6 weights go before phase I
 
+    lap("D with H3")
     # -- I. the MoE model: phi3.5-moe served and expert-parallel, grok-1 -------
     record["moe"] = serve_moe(torch, dev, kernels)
     gc.collect()
     torch.cuda.empty_cache()  # the phi and grok weights go before phase J
 
+    lap("I")
     # -- J. the LM serve bench and the collective count -------------------------
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -2594,37 +2643,51 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("J")
     # -- K. the last model families: zamba2, llama-3.2-vision, hubert -----------
     record["families"] = families(torch, dev, kernels)
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("K")
     # -- E. the §VI sweep on the card: smoke grid, card grid, auto ------------
     record["sweep"] = sweep_phase(torch, dev, out_dir)
     torch.cuda.empty_cache()
 
+    lap("E")
     # -- F. the process axis: a 2-process grid on the card -------------------
     record["grid"] = grid_phase(torch, dev, out_dir)
     torch.cuda.empty_cache()
 
+    lap("F")
     # -- G. elastic recovery at the heat3d size ---------------------------------
     record["elastic"] = elastic_phase(torch, dev, out_dir)
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("G")
     # -- L. training: the flash backward, stablelm-1.6b at full width -----------
     record["training"] = training(torch, dev, kernels)
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("L")
     # -- M. every family trains: the WKV backward, rwkv6-1.6b, the others --------
     record["families_training"] = families_training(torch, dev, kernels)
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("M")
     # -- N. training on a mesh of stacked ranks, restarted onto a smaller one ----
     record["mesh_training"] = mesh_training(torch, dev, kernels, record["training"]["L2"])
+    gc.collect()
+    torch.cuda.empty_cache()
 
+    lap("N")
+    # -- O. the dry-run against the card: meta routes, a production cell, L2 ----
+    record["dryrun"] = dryrun_check(torch, dev, record["training"]["L2"])
+
+    lap("O")
     # -- 5. results -----------------------------------------------------------
     record.update(
         kernels=list(kernels.values()),
@@ -2652,6 +2715,7 @@ def main() -> int:
           f"launch calls without a device record in the sessions kept; clock-check gaps "
           f"{record['profiler_traces']['min_gap_us']} to {record['profiler_traces']['max_gap_us']} us",
           flush=True)
+    record["phase_s"] = phase_s
     record["script_s"] = time.perf_counter() - t_main
     print(f"chip_smoke: all phases in {record['script_s']:.1f} s", flush=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -30,22 +30,46 @@ them is taken from the collectives as the port issues them:
   hardware the terms were built with (the JAX property divides by
   ``V5E``'s whatever ``hw`` was).
 
-The FLOP and HBM-byte half of ``analyze_hlo`` has no counterpart here: it
-belongs with the port of ``launch/dryrun.py`` (shapes from meta tensors).
+* :func:`count_cost` is the FLOP and HBM-byte half of ``analyze_hlo``:
+  it runs a function once (on meta tensors for the dry-run,
+  :mod:`repro_torch.launch.dryrun`, or on any device) under a
+  ``TorchDispatchMode`` that sees every op dispatched, forward and
+  backward, a remat's recomputation included.  FLOPs are the matrix
+  products' (``mm``, ``bmm``, ``addmm``, ``baddbmm``, the convolutions:
+  ``torch.utils.flop_counter``'s formulas, ``2 x |result| x
+  |contracting|`` as ``_dot_flops``) plus what the hand-written kernels'
+  meta routes record (:mod:`repro_torch.kernels.costs`: each kernel at its
+  own traffic, where JAX's dry-run counts its plain attention).  Bytes
+  follow ``_op_traffic``: each op is charged its result plus its
+  operands; an op whose output aliases its input (a view, a reshape that
+  is a view, a transpose, an expand, a slice, ``detach``) nothing, as
+  ``_NO_TRAFFIC_OPS``; a scatter (``index_put``, ``scatter``,
+  ``index_add``, the embedding's backward) three times its operands but
+  the largest, a gather (``index``, ``gather``, ``index_select``,
+  ``embedding``) twice its result; an allocation (``empty``) nothing.  The
+  port fuses nothing, so every op is a top-level op.  The peak is the
+  most bytes live at once of the storages made during the call (a storage
+  counted once whatever its views, released by a finalizer when its last
+  tensor goes).  Collectives are :func:`count_collectives`' fields.
 """
 
 from __future__ import annotations
 
+import contextlib
+import weakref
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core import transport
+from repro_torch.kernels import _build
 
-__all__ = ["CollectiveStats", "count_collectives", "Hardware", "V5E", "H100",
-           "RooflineTerms", "roofline"]
+__all__ = ["CollectiveStats", "count_collectives", "CostStats", "count_cost", "counting",
+           "repeated", "Hardware", "V5E", "H100", "RooflineTerms", "roofline"]
 
 
 def _wire_bytes(op: str, result_bytes: float, g: int) -> float:
@@ -115,6 +139,180 @@ def count_collectives(fn: Callable, *args: Any, **kw: Any) -> CollectiveStats:
         if outer is not None:
             outer.extend(log)
     return CollectiveStats.from_log(log, result)
+
+
+# ---------------------------------------------------------------------------
+# FLOPs, HBM bytes and the peak of one call
+# ---------------------------------------------------------------------------
+
+#: the matrix products whose FLOPs count (``_dot_flops``'s dots, and the
+#: convolutions)
+_PRODUCTS = frozenset(getattr(torch.ops.aten, n) for n in (
+    "mm", "bmm", "addmm", "baddbmm", "convolution", "_convolution", "convolution_backward"))
+#: allocations: their result is not written
+_ALLOCATIONS = frozenset({"empty", "empty_like", "empty_strided", "new_empty",
+                          "new_empty_strided"})
+#: in-place writes of the result alone (its old contents are not read)
+_WRITES = frozenset({"fill_", "zero_", "normal_", "uniform_", "random_", "bernoulli_"})
+#: scatters: three times the operands but the largest (the destination)
+_SCATTERS = frozenset({"index_put", "index_put_", "_index_put_impl_", "scatter", "scatter_",
+                       "scatter_add", "scatter_add_", "scatter_reduce", "scatter_reduce_",
+                       "index_add", "index_add_", "index_copy", "index_copy_",
+                       "masked_scatter", "masked_scatter_", "embedding_dense_backward"})
+#: gathers: twice the result
+_GATHERS = frozenset({"index", "gather", "index_select", "embedding", "take"})
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _tensors(tree: Any, out: list) -> list:
+    """The tensors of an op's arguments or result (tuples and lists of
+    them), in order."""
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    return out
+
+
+@dataclass
+class CostStats(CollectiveStats):
+    """One call's FLOPs, HBM bytes and peak (:func:`count_cost`) beside its
+    collectives (the fields of :class:`CollectiveStats`); ``kernels``: per
+    hand-written kernel whose meta route ran, its calls, FLOPs and bytes
+    (already in ``flops`` and ``bytes``); ``ops``: the ops dispatched."""
+
+    flops: int = 0
+    bytes: int = 0
+    peak_bytes: int = 0
+    kernels: dict = field(default_factory=dict)
+    ops: int = 0
+
+
+class _CostMode(TorchDispatchMode):
+    """Sees every op dispatched while it is on (module docstring)."""
+
+    def __init__(self):
+        super().__init__()
+        self.flops = 0  # ints: a count of many ops stays exact
+        self.bytes = 0
+        self.ops = 0
+        self.live = 0
+        self.peak = 0
+        self._storages: set[int] = set()
+
+    def _release(self, key: int, nbytes: int) -> None:
+        self._storages.discard(key)
+        self.live -= nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.ops += 1
+        packet = func.overloadpacket
+        if packet in _PRODUCTS:
+            self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
+        ins = _tensors(args, [])
+        for k, v in kwargs.items():
+            if k != "out":
+                _tensors(v, ins)
+        outs = _tensors(out, [])
+        in_storages = {t.untyped_storage()._cdata for t in ins}
+        name = packet.__name__
+        if (not func._schema.is_mutable
+                and all(t.untyped_storage()._cdata in in_storages for t in outs)):
+            return out  # a view of an input: no traffic, no storage
+        for t in outs:
+            st = t.untyped_storage()
+            key = st._cdata
+            if key not in self._storages and key not in in_storages:
+                nbytes = st.nbytes()
+                self._storages.add(key)
+                self.live += nbytes
+                self.peak = max(self.peak, self.live)
+                weakref.finalize(st, self._release, key, nbytes)
+        operand_b = [_nbytes(t) for t in ins]
+        result_b = sum(_nbytes(t) for t in outs)
+        if name in _ALLOCATIONS:
+            return out
+        if name in _WRITES:
+            self.bytes += result_b
+        elif name == "copy_":
+            self.bytes += result_b + sum(operand_b[1:])
+        elif name in _SCATTERS:
+            if name == "embedding_dense_backward":  # its destination is made inside
+                operand_b.append(result_b)
+            self.bytes += 3 * (sum(operand_b) - max(operand_b, default=0))
+        elif name in _GATHERS:
+            self.bytes += 2 * result_b
+        else:
+            self.bytes += result_b + sum(operand_b)
+        return out
+
+
+#: the count :func:`count_cost` runs, while it runs
+_ACTIVE: _CostMode | None = None
+
+
+def counting() -> bool:
+    """Whether a :func:`count_cost` is running."""
+    return _ACTIVE is not None
+
+
+@contextlib.contextmanager
+def repeated(n: int, *, collectives: bool = False):
+    """Inside a :func:`count_cost`, what the block counts (FLOPs, bytes,
+    ops, the kernels' calls) counts ``n`` times: a block that stands for
+    ``n`` passes of the same shapes, run once (the meta step's data ranks
+    and microbatches, :mod:`repro_torch.train.train_loop`).  Its storages
+    count once.  Its collectives count ``n`` times with ``collectives``
+    (passes one device runs in turn: the microbatches), else once (passes
+    that run side by side on other devices: the data ranks, whose
+    collectives a per-device count takes once).  Outside a count it does
+    nothing."""
+    mode = _ACTIVE
+    if mode is None or n == 1:
+        yield
+        return
+    flops, nbytes, ops, logged = mode.flops, mode.bytes, mode.ops, len(_build.COST_LOG)
+    issued = len(transport.OP_LOG) if transport.OP_LOG is not None else 0
+    yield
+    mode.flops += (n - 1) * (mode.flops - flops)
+    mode.bytes += (n - 1) * (mode.bytes - nbytes)
+    mode.ops += (n - 1) * (mode.ops - ops)
+    _build.COST_LOG.extend(_build.COST_LOG[logged:] * (n - 1))
+    if collectives and transport.OP_LOG is not None:
+        transport.OP_LOG.extend(transport.OP_LOG[issued:] * (n - 1))
+
+
+def count_cost(fn: Callable, *args: Any, **kw: Any) -> CostStats:
+    """Run ``fn(*args, **kw)`` once under the cost count (module
+    docstring) and return its :class:`CostStats` (``.result`` is what
+    ``fn`` returned).  The totals are of the whole call: on a mesh of
+    stacked ranks, every rank's."""
+    global _ACTIVE
+    mode, outer, outer_log, log = _CostMode(), _ACTIVE, _build.COST_LOG, []
+    _build.COST_LOG, _ACTIVE = log, mode
+    try:
+        with mode:
+            coll = count_collectives(fn, *args, **kw)
+    finally:
+        _build.COST_LOG, _ACTIVE = outer_log, outer
+        if outer_log is not None:
+            outer_log.extend(log)
+    kernels: dict = {}
+    for name, flops, nbytes in log:
+        k = kernels.setdefault(name, {"calls": 0, "flops": 0, "bytes": 0})
+        k["calls"] += 1
+        k["flops"] += flops
+        k["bytes"] += nbytes
+    return CostStats(coll.wire_bytes, coll.by_op_bytes, coll.by_op_counts, coll.log, coll.result,
+                     flops=mode.flops + sum(k["flops"] for k in kernels.values()),
+                     bytes=mode.bytes + sum(k["bytes"] for k in kernels.values()),
+                     peak_bytes=mode.peak, kernels=kernels, ops=mode.ops)
 
 
 # ---------------------------------------------------------------------------

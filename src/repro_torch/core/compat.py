@@ -16,7 +16,10 @@ DEFAULT_DEVICE = "cuda"
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` means the card.  Raises when a CUDA device is asked for and
-    this process has none (never picks the CPU on its own)."""
+    this process has none (never picks the CPU on its own).  ``"meta"`` is
+    taken only when the caller names it: shapes and dtypes without storage,
+    which the dry-run (:mod:`repro_torch.launch.dryrun`) builds its cells
+    from."""
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -26,8 +29,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             )
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {str(dev)!r} (cuda or cpu)")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {str(dev)!r} (cuda, cpu or meta)")
     return dev
 
 

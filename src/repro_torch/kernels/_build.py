@@ -20,6 +20,11 @@ that its main path went through the kernels.
 A kernel is a ctypes call: its output has no ``grad_fn``.  A wrapper
 without a backward calls :func:`refuse_grad` first, so a gradient through
 it raises instead of silently stopping at its output.
+
+On meta tensors the LM kernels' wrappers launch nothing: they return
+outputs of the kernel's shapes and dtypes and :func:`record_cost` its
+operations and bytes (:mod:`repro_torch.kernels.costs`) into
+``COST_LOG`` when a count is on (``comm_analysis.count_cost``).
 """
 
 from __future__ import annotations
@@ -43,6 +48,10 @@ NVCC_FLAGS = (
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: collections.Counter = collections.Counter()
+
+#: ``(kernel name, flops, bytes)`` of every meta-route call while a cost
+#: count is on (``comm_analysis.count_cost`` sets it to a list), else None
+COST_LOG: list | None = None
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
@@ -139,6 +148,14 @@ def refuse_grad(name: str, *tensors, why: str) -> None:
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(f"{name}: no backward kernel, so a gradient through it would "
                                   f"stop at its output; {why}")
+
+
+def record_cost(name: str, cost: tuple[int, int]) -> None:
+    """A meta route's call of kernel ``name``: its ``(flops, bytes)`` into
+    ``COST_LOG`` when a count is on.  Never a launch: ``LAUNCHES`` is not
+    touched."""
+    if COST_LOG is not None:
+        COST_LOG.append((name, *cost))
 
 
 def check(code: int, what: str) -> None:

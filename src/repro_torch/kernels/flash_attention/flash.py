@@ -22,7 +22,11 @@ CUDA tensors only; the CPU path is :func:`repro_torch.kernels.
 flash_attention.ops.attention_plain`, chosen by :mod:`repro_torch.kernels.
 flash_attention.ops`.  Launches on the current stream, allocates only its
 output, and adds one to ``_build.LAUNCHES["flash_attention"]`` per launch,
-whichever the route.
+whichever the route.  Meta tensors (the dry-run) take a route of their
+own, checked as the card's: it launches nothing and counts no launch,
+returns outputs of the kernel's shapes and dtypes, and records the call's
+operations and bytes (:func:`repro_torch.kernels.costs.flash_cost`,
+``flash_bwd_cost``) with ``_build.record_cost``.
 
 Training (:class:`FlashAttentionFn`): the forward also writes each row's
 log-sum-exp, and :func:`flash_attention_bwd`, the hand-written backward
@@ -39,7 +43,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head dims the kernel is instantiated for (80, hubert-xlarge's, runs the
@@ -78,8 +82,9 @@ def check_rows_aligned(*tensors: torch.Tensor) -> None:
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for t in (q, k, v):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError("flash_attention: q, k and v must be on one CUDA device")
+        if t.device.type not in ("cuda", "meta") or t.device != q.device:
+            raise ValueError("flash_attention: q, k and v must be on one CUDA device (or all "
+                             "on meta)")
         if t.dim() != 4 or t.stride(-1) != 1:
             raise ValueError(f"flash_attention: tensors must be (B, S, H, D) with a "
                              f"contiguous last dim, got {tuple(t.shape)} {t.stride()}")
@@ -138,9 +143,14 @@ def flash_attention(
                          f"on {q.device}")
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.bfloat16 and skv < 1:
+        raise ValueError("flash_attention: the bf16 route needs at least one key")
+    if q.device.type == "meta":  # the dry-run: shapes and the call's cost, no launch
+        _build.record_cost("flash_attention", costs.flash_cost(
+            b, sq, hq, skv, hkv, d, causal=causal, itemsize=q.element_size(),
+            lse=lse is not None))
+        return out
     if q.dtype == torch.bfloat16:
-        if skv < 1:
-            raise ValueError("flash_attention: the bf16 route needs at least one key")
         check_rows_aligned(q, k, v, out)
     lib = _build.load("flash_attention", _SIGNATURES)
     code = lib.flash_attention(
@@ -203,12 +213,16 @@ def flash_attention_bwd(
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous f32 {(b, hq, sq)} "
                          f"tensor on {q.device}")
-    if q.dtype == torch.bfloat16:
-        check_rows_aligned(q, k, v, dout)
-    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     dq = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, skv, hkv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
+    if q.device.type == "meta":  # the dry-run: shapes and the call's cost, no launch
+        _build.record_cost("flash_attention_bwd", costs.flash_bwd_cost(
+            b, sq, hq, skv, hkv, d, causal=causal, itemsize=q.element_size()))
+        return dq, dk, dv
+    if q.dtype == torch.bfloat16:
+        check_rows_aligned(q, k, v, dout)
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
     lib = _build.load("flash_attention", _SIGNATURES)
     size = ctypes.c_longlong(0)
     code = lib.flash_attention_bwd_workspace(_DTYPE_CODE[q.dtype], b, hq, hkv, sq, skv, d,

@@ -7,7 +7,9 @@ reads the model layout through strides, so no transposing copy is made.
 On the card a call that needs a gradient (grad enabled, an input requiring
 grad) goes through :class:`~repro_torch.kernels.flash_attention.flash.
 FlashAttentionFn`, whose backward is the hand-written ``flash_attention_bwd``
-kernel; any other call launches the forward alone, as serving does.  On
+kernel; any other call launches the forward alone, as serving does.  A
+meta tensor takes the same calls, whose meta routes launch nothing and
+record each kernel's cost (the dry-run).  On
 the CPU autograd differentiates the plain version, as JAX's training
 differentiates its plain attention.
 """
@@ -45,7 +47,7 @@ def attention(
     """Multi-head (GQA) attention with model-layout tensors."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, causal=causal, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):  # meta: the kernels' dry-run route
         raise ValueError(f"unsupported device {q.device}")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, scale)

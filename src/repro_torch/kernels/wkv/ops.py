@@ -9,7 +9,9 @@ model runs its scan here (the JAX model runs its own jnp ``wkv_scan``).
 On the card a call that needs a gradient (grad enabled, an input requiring
 grad) goes through :class:`~repro_torch.kernels.wkv.wkv.WkvChunkedFn`,
 whose backward is the hand-written ``wkv_chunked_bwd`` kernel; any other
-call launches the forward alone, as serving does.  On the CPU autograd
+call launches the forward alone, as serving does.  A meta tensor takes the
+same calls, whose meta routes launch nothing and record each kernel's cost
+(the dry-run).  On the CPU autograd
 differentiates the plain version, as JAX's training differentiates its
 jnp scan.
 """
@@ -41,7 +43,7 @@ def wkv(
     ``(y (B, T, H, hd), S_fin (B, H, hd, hd))``."""
     if r.device.type == "cpu":
         return wkv_plain(r, k, v, lw, u, chunk=chunk, S0=S0)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):  # meta: the kernels' dry-run route
         raise ValueError(f"unsupported device {r.device}")
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in (r, k, v, lw, u, S0)):

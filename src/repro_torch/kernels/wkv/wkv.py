@@ -24,7 +24,12 @@ calls it with T = c = 1.
 CUDA tensors only; the CPU path is :func:`repro_torch.kernels.wkv.ops.
 wkv_plain`, chosen by :mod:`repro_torch.kernels.wkv.ops`.  Launches on the
 current stream, allocates only its outputs, and adds one to
-``_build.LAUNCHES["wkv_chunked"]`` per launch.
+``_build.LAUNCHES["wkv_chunked"]`` per launch.  Meta tensors (the dry-run)
+take a route of their own, checked as the card's: it launches nothing and
+counts no launch, returns outputs of the kernel's shapes and dtypes (the
+chunk-entry states and du included), and records the call's operations
+and bytes (:func:`repro_torch.kernels.costs.wkv_cost`, ``wkv_bwd_cost``)
+with ``_build.record_cost``.
 
 Training (:class:`WkvChunkedFn`): the forward also writes each chunk's
 entry state, and :func:`wkv_chunked_bwd`, the hand-written backward (the
@@ -47,7 +52,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 #: head sizes the kernel is instantiated for
@@ -86,7 +91,7 @@ def _check_inputs(what: str, chunk: int, u: torch.Tensor, **rows: torch.Tensor) 
     chunk; returns ``(B, T, H, hd, c)``."""
     r = next(iter(rows.values()))
     for name, t in (*rows.items(), ("u", u)):
-        if t.device.type != "cuda" or t.device != r.device:
+        if t.device.type not in ("cuda", "meta") or t.device != r.device:
             raise ValueError(f"{what}: {name} must be on the CUDA device of r, got {t.device}")
         if t.dtype != r.dtype:
             raise TypeError(f"{what}: {name} is {t.dtype}, r is {r.dtype} (one dtype)")
@@ -147,6 +152,11 @@ def wkv_chunked(
         _check_f32(states, (b, h, T // c, hd, hd), r.device, "states")
     y = torch.empty((b, T, h, hd), dtype=r.dtype, device=r.device)
     S_fin = torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":  # the dry-run: shapes and the call's cost, no launch
+        _build.record_cost("wkv_chunked", costs.wkv_cost(
+            b, T, h, hd, c, itemsize=r.element_size(), u_numel=u.numel(), S0=S0 is not None,
+            states=states is not None))
+        return y, S_fin
     lib = _build.load("wkv", _SIGNATURES)
     code = lib.wkv_chunked(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
@@ -216,19 +226,24 @@ def wkv_chunked_bwd(
     du = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
     dS0 = (torch.empty((b, h, hd, hd), dtype=torch.float32, device=r.device) if want_dS0
            else None)
-    work = torch.empty(bwd_workspace_floats(b, T, h, hd, c), dtype=torch.float32,
-                       device=r.device)
-    lib = _build.load("wkv", _SIGNATURES)
-    code = lib.wkv_chunked_bwd(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(), dy.data_ptr(),
-        states.data_ptr(), None if dS_fin is None else S_fin.data_ptr(),
-        None if dS_fin is None else dS_fin.data_ptr(), dr.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dlw.data_ptr(), du.data_ptr(), None if dS0 is None else dS0.data_ptr(),
-        work.data_ptr(), _DTYPE_CODE[r.dtype], b, T, h, hd, c, usb, ush,
-        _build.stream_ptr(r.device),
-    )
-    _build.LAUNCHES["wkv_chunked_bwd"] += 1
-    _build.check(code, "wkv_chunked_bwd")
+    if r.device.type == "meta":  # the dry-run: the call's cost, no launch
+        _build.record_cost("wkv_chunked_bwd", costs.wkv_bwd_cost(
+            b, T, h, hd, c, itemsize=r.element_size(), u_numel=u.numel(),
+            dS_fin=dS_fin is not None, dS0=want_dS0))
+    else:
+        work = torch.empty(bwd_workspace_floats(b, T, h, hd, c), dtype=torch.float32,
+                           device=r.device)
+        lib = _build.load("wkv", _SIGNATURES)
+        code = lib.wkv_chunked_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(), u.data_ptr(),
+            dy.data_ptr(), states.data_ptr(), None if dS_fin is None else S_fin.data_ptr(),
+            None if dS_fin is None else dS_fin.data_ptr(), dr.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dlw.data_ptr(), du.data_ptr(),
+            None if dS0 is None else dS0.data_ptr(), work.data_ptr(), _DTYPE_CODE[r.dtype],
+            b, T, h, hd, c, usb, ush, _build.stream_ptr(r.device),
+        )
+        _build.LAUNCHES["wkv_chunked_bwd"] += 1
+        _build.check(code, "wkv_chunked_bwd")
     if u.dim() == 2:
         du = torch.sum(du, dim=0)  # over the batch, in a fixed order
     return dr, dk, dv, dlw, du.to(u.dtype), dS0

@@ -17,7 +17,9 @@ prefill's, and the VLM's cross attention), ``wkv=`` for the RWKV scan
 (e.g. their plain versions for a comparison run on the card).  ``loss``
 serves every family: on the card the attention's backward is the
 hand-written flash backward kernel, the RWKV scan's the WKV backward
-kernel.
+kernel.  ``build_model(cfg, "meta")`` runs every step on meta tensors
+(shapes and dtypes only; the kernels' meta routes), and
+:func:`batch_spec` gives a cell's inputs there (the dry-run).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.compat import resolve_device
 from repro_torch.models import encoder, hybrid, moe, rwkv, transformer, vision
 from repro_torch.models.layers import META, AttentionFn
@@ -117,6 +119,28 @@ class Model:
     def decode_step(self, params, token, cache, *, ctx: ParallelContext = LOCAL):
         kw = {"wkv": self.wkv} if self.cfg.family == "rwkv" else {}
         return self.module.decode_step(self.cfg, params, token, cache, ctx=ctx, **kw)
+
+
+def batch_spec(cfg: ModelConfig, shape: ShapeConfig, device: str | torch.device = "meta"
+               ) -> dict[str, torch.Tensor]:
+    """Stand-ins for one workload cell's inputs (JAX's ``batch_spec``: the
+    same keys, shapes and dtypes per family), empty tensors on ``device``:
+    ``tokens`` and ``labels`` int32 ``(B, S)``; audio ``frames`` bf16 ``(B,
+    S, d_vision)``, ``labels`` and an f32 ``mask`` in their place; vlm
+    ``vision_emb`` bf16 ``(B, vision_tokens, d_vision)`` beside them."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def empty(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device=device)
+
+    if cfg.family == "audio":
+        return {"frames": empty((b, s, cfg.d_vision), torch.bfloat16),
+                "labels": empty((b, s), torch.int32),
+                "mask": empty((b, s), torch.float32)}
+    spec = {"tokens": empty((b, s), torch.int32), "labels": empty((b, s), torch.int32)}
+    if cfg.family == "vlm":
+        spec["vision_emb"] = empty((b, cfg.vision_tokens, cfg.d_vision), torch.bfloat16)
+    return spec
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None, *,

@@ -24,6 +24,7 @@ rank's shards, and the new parameters are all-gathered over the data axes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -35,6 +36,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, OptimizerConfig, RunConfig, ShapeConfig
 from repro_torch.core import transport
+from repro_torch.core.comm_analysis import counting, repeated
 from repro_torch.core.compat import torch_dtype
 from repro_torch.core.mesh import VirtualMesh, make_mesh
 from repro_torch.core.partitioned import (
@@ -253,6 +255,19 @@ def gather_state(state: TrainState, mesh: VirtualMesh, placed: TrainState,
     return _map_specs(one, state, placed)
 
 
+@contextlib.contextmanager
+def _logged(on: bool):
+    """Collectives issued inside go to ``transport.OP_LOG`` only when
+    ``on``."""
+    log = transport.OP_LOG
+    if not on:
+        transport.OP_LOG = None
+    try:
+        yield
+    finally:
+        transport.OP_LOG = log
+
+
 def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
                microbatches: int, specs: TrainState | None = None) -> Callable:
     """The step on ``ctx.mesh`` (module docstring), in six stages:
@@ -274,7 +289,15 @@ def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
        with JAX's decay mask and schedule;
     6. the new parameter shards all-gathered over the data axes.
 
-    The loss is the mean of the data ranks' losses."""
+    The loss is the mean of the data ranks' losses.  The collectives of
+    stages 1 and 2 are logged for one data rank (the last), as a device
+    issues them.  Under a cost count on a meta mesh (the dry-run) every
+    data rank's pass, and every microbatch of it, has the same shapes:
+    stage 2 runs the last rank's first microbatch and counts it as the
+    passes it stands for (:func:`~repro_torch.core.comm_analysis.
+    repeated`: the microbatches' collectives too), after allocating the
+    earlier ranks' gradients, which the real order holds through the last
+    pass."""
     mesh = ctx.mesh
     data_axes, model_axis = _mesh_axes(ctx)
     nd = len(data_axes)
@@ -289,13 +312,15 @@ def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
     row = make_mesh((1,) * nd + (k,), mesh.axis_names, device=mesh.device)
     row_ctx = dataclasses.replace(ctx, mesh=row)
     accum_dtype = torch_dtype(model.cfg.grad_accum_dtype)
+    meta = mesh.device.type == "meta"
+    like_leaves = [t for _, t in tree_leaves(like["params"])]
     b1, b2, eps = opt_cfg.beta1, opt_cfg.beta2, opt_cfg.eps
 
     def gathered(p: torch.Tensor, d: int, spec) -> torch.Tensor:
         """Stage 1 for data rank ``d``: its row's shards, whole."""
         x = p.reshape(dsize, k, *p.shape[nd + 1:])[d].reshape(*row.axis_sizes, *p.shape[nd + 1:])
         whole = _from_stacked(x, row, spec)
-        if d == 0 and transport.OP_LOG is not None and model_axis in _axes_of_spec(spec):
+        if transport.OP_LOG is not None and model_axis in _axes_of_spec(spec):
             transport.log_collective("all-gather", whole[None], k)
         return whole.detach()
 
@@ -311,12 +336,14 @@ def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
         n = next(iter(rows.values())).shape[0] // microbatches
         g_sum = [torch.zeros(p.shape, dtype=accum_dtype, device=p.device) for p in leaves]
         l_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-        for i in range(microbatches):
-            loss = model.loss(tree, {key: v[i * n:(i + 1) * n] for key, v in rows.items()},
-                              ctx=row_ctx)
-            for a, b in zip(g_sum, torch.autograd.grad(loss, leaves)):
-                a.add_(b)
-            l_sum = l_sum + loss.detach()
+        once = meta and counting()
+        with repeated(microbatches if once else 1, collectives=True):
+            for i in range(1 if once else microbatches):
+                loss = model.loss(tree, {key: v[i * n:(i + 1) * n] for key, v in rows.items()},
+                                  ctx=row_ctx)
+                for a, b in zip(g_sum, torch.autograd.grad(loss, leaves)):
+                    a.add_(b)
+                l_sum = l_sum + loss.detach()
         return l_sum / microbatches, g_sum
 
     def data_rows(batch: dict) -> list[dict]:
@@ -396,8 +423,15 @@ def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
         m_leaves = [t for _, t in tree_leaves(opt["m"])]
         v_leaves = [t for _, t in tree_leaves(opt["v"])]
         losses, grads = [], []
+        once = meta and counting()
+        g_dtype = accum_dtype if microbatches > 1 else None
         for d, rows in enumerate(data_rows(batch)):
-            loss, g = rank_grads(params, d, rows)
+            if once and d < dsize - 1:  # held while the pass that stands for it runs
+                grads.append([torch.empty(t.shape, dtype=g_dtype or t.dtype, device=t.device)
+                              for t in like_leaves])
+                continue
+            with repeated(dsize if once else 1), _logged(d == dsize - 1):
+                loss, g = rank_grads(params, d, rows)
             losses.append(loss)
             grads.append(g)
             del g

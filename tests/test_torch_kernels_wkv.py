@@ -19,6 +19,7 @@ compile again on every call.
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -154,9 +155,15 @@ def test_length_not_a_multiple_of_the_chunk_raises_like_jax():
 
 
 def test_wkv_refuses_other_devices():
+    # meta is the kernels' dry-run route (shapes and dtypes, no launch); any
+    # device but the CPU, CUDA and meta is refused
     x = torch.zeros((1, 4, 1, 8), device="meta")
+    y, S = wkv(x, x, x, x, torch.zeros((1, 8), device="meta"), chunk=4)
+    assert (y.shape, y.device.type, S.shape, S.dtype) == (x.shape, "meta", (1, 1, 8, 8),
+                                                           torch.float32)
+    other = types.SimpleNamespace(device=torch.device("xpu"))
     with pytest.raises(ValueError, match="unsupported device"):
-        wkv(x, x, x, x, torch.zeros((1, 8), device="meta"), chunk=4)
+        wkv(other, x, x, x, x, chunk=4)
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone and never runs on the CPU unasked.
 
 * No module of ``src/repro_torch/``, no line of ``chip_smoke.py`` and none
-  of the port's example imports ``jax``, ``ml_dtypes`` or anything of the
+  of the port's example imports ``jax``, ``ml_dtypes``, ``zstandard`` or anything of the
   JAX package ``repro`` (checked on the syntax tree, so an import inside a function
   counts too).
 * Entry points take the card by default: without CUDA they raise instead of
@@ -23,7 +23,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "serve_bench_lm.py", ROOT / "tools" / "families_lm.py",
     ROOT / "tools" / "train_lm.py", ROOT / "examples" / "train_lm_torch.py",
     ROOT / "tools" / "trace_sessions.py", ROOT / "tools" / "time_flash_bwd.py",
-    ROOT / "tools" / "train_families_lm.py", ROOT / "tools" / "train_mesh_lm.py"]
+    ROOT / "tools" / "train_families_lm.py", ROOT / "tools" / "train_mesh_lm.py",
+    ROOT / "tools" / "dryrun_lm.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -75,13 +76,15 @@ def test_port_has_modules_and_smoke_script():
                      "src/repro_torch/launch/mesh.py", "src/repro_torch/launch/train.py",
                      "tools/train_lm.py", "examples/train_lm_torch.py",
                      "tools/trace_sessions.py", "tools/time_flash_bwd.py",
-                     "tools/train_families_lm.py", "tools/train_mesh_lm.py"):
+                     "tools/train_families_lm.py", "tools/train_mesh_lm.py",
+                     "src/repro_torch/launch/dryrun.py", "src/repro_torch/kernels/costs.py",
+                     "tools/dryrun_lm.py"):
         assert required in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.relative_to(ROOT).as_posix())
 def test_no_jax_or_reference_package_import(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes", "zstandard"}
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 

@@ -1,19 +1,20 @@
 """Phase K of ``chip_smoke.py``: the last model families on one card, each
-at full width and depth with random weights from seed 0.
+at full width with random weights from seed 0, and at half its depth
+(``DEPTHS``: the script's time, when phase O joined).
 
-* K1, zamba2-1.2b (38 mamba layers of d_inner 4096 with 64 SSD heads of
-  64 and state 64, one shared attention block of 32 heads of 64 after each
-  group of 6; vocab 32000; 2.4 GB in bf16) through
+* K1, zamba2-1.2b (19 of its 38 mamba layers of d_inner 4096 with 64 SSD
+  heads of 64 and state 64, one shared attention block of 32 heads of 64
+  after each group of 6; vocab 32000; 2.4 GB in bf16 at full depth) through
   ``ServingEngine(max_slots=4, max_len=2048)``: 8 requests of 5-2016 prompt
   tokens (lengths the SSD scan takes: at most 32, or a multiple of 32), 16
   new each, prefilled at their exact length.  ``flash_attention`` launches
-  6 times a prefill (the shared block), the decode step is the engine's
+  once a group a prefill (the shared block), the decode step is the engine's
   captured graph: tokens against the eager decode (equal) and against the
   same engine with the plain attention (equal, or a near tie at the first
   difference).  Prefill ms at the longest prompt, decode ms a step eager
   and graph with idle shares, tokens per second, beside the floor of the
   weights and the f32 SSD state a step reads.
-* K2, zamba2-1.2b with f32 weights, one 2048-token prompt's logits on a
+* K2, zamba2-1.2b (K1's depth) with f32 weights, one 2048-token prompt's logits on a
   ``(1, 8)`` ``VirtualMesh`` over ``("data", "model")`` under
   ``seq_parallel`` (the conv's ghost cells through ``seq_left_halo``, the
   SSD state through ``state_passing`` by ``ring`` and ``tree``, ring
@@ -24,18 +25,20 @@ at full width and depth with random weights from seed 0.
   packer ``cuda`` (``copy_convert`` a pack and an unpack a partition)
   bitwise equal to packer ``slice`` at ``n_parts`` 1 and 3, its launches
   counted.
-* K3, llama-3.2-vision-11b (40 layers: 8 groups of 4 self layers and a
-  gated cross layer over 1601 vision tokens; 19.6 GB in bf16) through the
-  same engine with K1's requests and checks, ``flash_attention`` launched
-  40 times a prefill (self and cross layers).  The engine feeds zero patch
+* K3, llama-3.2-vision-11b (20 of its 40 layers: 4 of its 8 groups of 4
+  self layers and a gated cross layer over 1601 vision tokens; 19.6 GB in
+  bf16 at full depth) through the same engine with K1's requests and
+  checks, ``flash_attention`` launched once a layer a prefill (self and
+  cross layers).  The engine feeds zero patch
   embeddings and the gates start at zero, so the cross layers are the
   identity there; so one 512-token prefill and one logits call also run
   with the gates at 0.5 and a random ``vision_emb``, flash against plain
   within ``VLM_REL_TOL``, and the logits must move from the closed-gate
   model's by more than ``CROSS_MOVES`` times the flash-plain difference.
-* K4, hubert-xlarge (48 non-causal layers of 16 heads of 80; 1.9 GB in
-  bf16) ``encode`` of 4 x 1000 frames (20 s of audio at 50 frames/s):
-  ``flash_attention`` launched 48 times at head dim 80 (the padded
+* K4, hubert-xlarge (24 of its 48 non-causal layers of 16 heads of 80;
+  1.9 GB in bf16 at full depth) ``encode`` of 4 x 1000 frames (20 s of
+  audio at 50 frames/s): ``flash_attention`` launched once a layer at head
+  dim 80 (the padded
   tensor-core route), the cluster logits within ``ENC_REL_TOL`` of the same
   model with the plain attention; ms a call with the idle share.
 
@@ -52,6 +55,10 @@ from moe_lm import weight_bytes
 from ring_lm import PhaseFailure, host_ms_turns, near_ties, rel_err
 
 ZAMBA, VLM, HUBERT = "zamba2-1.2b", "llama-3.2-vision-11b", "hubert-xlarge"
+#: each model's depth cut to half (the script's time, when phase O joined:
+#: phase K took 75.9-77.1 s at full depth)
+DEPTHS = {ZAMBA: {"n_layers": 19}, VLM: {"n_layers": 20, "n_cross_layers": 4},
+          HUBERT: {"n_layers": 24}}
 #: prompt lengths of K1 and K3: lengths the SSD scan takes (at most its
 #: chunk of 32, or a multiple of it), from 5 to 2016
 SERVE_LENGTHS = (5, 12, 32, 160, 512, 992, 1504, 2016)
@@ -62,7 +69,7 @@ DECODE_STEPS = 10
 RING, SEQ_LEN = 8, 2048
 #: K2: ||seq-parallel - local|| / ||local|| of all 2048 positions' f32
 #: logits; the two paths sum the SSD and attention terms in other orders
-#: (f32 ulps through 38 layers)
+#: (f32 ulps through the layers)
 SEQ_REL_TOL = 1e-3
 HALO_PARTS = (1, 3)
 #: K3 and K4: ||flash - plain|| / ||plain|| of bf16 logits, phase H's
@@ -207,7 +214,8 @@ def zamba_ring(torch, dev, fails) -> dict:
     from repro_torch.models import ssm
     from repro_torch.parallel.context import ParallelContext
 
-    cfg = get_config(ZAMBA).with_updates(dtype="float32", param_dtype="float32")
+    cfg = get_config(ZAMBA).with_updates(**DEPTHS[ZAMBA], dtype="float32",
+                                         param_dtype="float32")
     model = build_model(cfg, dev)
     params = model.init(torch.Generator(dev).manual_seed(0))
     mesh = make_mesh((1, RING), ("data", "model"), device=dev)
@@ -326,7 +334,7 @@ def hubert_encode(torch, dev, fails) -> dict:
     from repro_torch.kernels.flash_attention import attention_plain
     from repro_torch.models import build_model
 
-    cfg = get_config(HUBERT)
+    cfg = get_config(HUBERT).with_updates(**DEPTHS[HUBERT])
     model = build_model(cfg, dev)
     params = model.init(torch.Generator(dev).manual_seed(0))
     plain = build_model(cfg, dev, attention=attention_plain)
@@ -378,11 +386,12 @@ def families_phase(torch, dev, *, hbm_bytes_per_s: float) -> dict:
     fails: list[str] = []
     out: dict = {}
     for tag, name in (("K1", ZAMBA), ("K3", VLM)):
-        model = build_model(get_config(name), dev)
+        model = build_model(get_config(name).with_updates(**DEPTHS[name]), dev)
         t0 = time.perf_counter()
         params = model.init(torch.Generator(dev).manual_seed(0))
         torch.cuda.synchronize()
-        print(f"phase {tag}: {name} at full width and depth, {param_gb(params):.2f} GB of bf16 "
+        print(f"phase {tag}: {name} at full width, {model.cfg.n_layers} layers, "
+              f"{param_gb(params):.2f} GB of bf16 "
               f"parameters made on the card in {time.perf_counter() - t0:.1f} s", flush=True)
         out[tag] = serve_family(torch, dev, model, params, fails, tag,
                                 hbm_bytes_per_s=hbm_bytes_per_s)

@@ -4,11 +4,12 @@ and one grok-1 MoE FFN at full width with its hidden-split slots (random
 weights from seed 0).
 
 * I1, phi3.5-moe (d_model 4096, 32 heads on 8 KV heads, 16 experts top-2
-  of d_ff 6400, vocab 32064; 16 of its 32 layers: 42 GB in bf16) through
+  of d_ff 6400, vocab 32064; ``PHI_LAYERS`` = 8 of its 32 layers: 21 GB
+  in bf16) through
   ``ServingEngine(max_slots=4, max_len=2048)`` under the local context
   (``moe_mode="dense"``): phase B's 8 requests (5-2000 prompt tokens, 16
   new each), prefilled at their exact length.  ``flash_attention``
-  launches 16 times a prefill, and the decode step (the dropless MoE) is
+  launches once a layer a prefill, and the decode step (the dropless MoE) is
   the engine's captured graph.  Tokens against the eager decode (equal)
   and against the same engine with the plain attention: reported in bf16
   (with the share of prefill routes the two runs send to other experts),
@@ -60,8 +61,9 @@ from ring_lm import (
 
 PHI = "phi3.5-moe-42b-a6.6b"
 GROK = "grok-1-314b"
-#: I1: phi3.5-moe's depth cut to fit one card (32 layers are 83.7 GB)
-PHI_LAYERS = 16
+#: I1: phi3.5-moe's depth cut to fit one card (32 layers are 83.7 GB), 16
+#: until phase O joined, then 8 for the script's time (phase I 63.4-65.2 s)
+PHI_LAYERS = 8
 SERVE_LENGTHS = (5, 12, 100, 200, 500, 900, 1500, 2000)
 SERVE_SLOTS, SERVE_MAX_LEN, SERVE_NEW = 4, 2048, 16
 DECODE_STEPS = 20
@@ -69,8 +71,8 @@ DECODE_STEPS = 20
 EP_RANKS = 16
 EP_PARTS = (1, 4)
 EP_LEN = 2048
-#: I2: ||EP - local|| / ||local|| of all 2048 positions' logits (bf16, 16
-#: layers, no drops).  The two paths run the experts' products at other
+#: I2: ||EP - local|| / ||local|| of all 2048 positions' logits (bf16,
+#: ``PHI_LAYERS`` layers, no drops).  The two paths run the experts' products at other
 #: batch shapes, so bf16 roundings may differ, and a rounding that moves a
 #: router logit across a near tie sends a token to another expert; on
 #: NVIDIA H100 80GB HBM3, 700 W, torch 2.11 the two read bitwise equal
@@ -79,8 +81,8 @@ EP_REL_TOL = 0.01
 #: I3: ||EP - dense|| / ||dense|| of the one FFN's outputs (bf16, no
 #: drops); read 0.0 on the same card, the planted fault 0.707
 GROK_REL_TOL = 0.01
-#: I1's token check: phi3.5-moe at this depth with f32 weights (42 GB, as
-#: the bf16 model at 16 layers), served by the flash and the plain engine.
+#: I1's token check: phi3.5-moe at this depth with f32 weights (42 GB),
+#: served by the flash and the plain engine.
 #: In bf16 the capacity routing turns attention's rounding differences
 #: into other experts (a route flipped at a near tie moves the ranks of
 #: every later token of both experts, and with them which tokens drop), so

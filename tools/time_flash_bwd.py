@@ -68,6 +68,7 @@ def main() -> int:
         print("time_flash_bwd: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.kernels import _build
+    from repro_torch.kernels.costs import flash_bwd_cost
     from repro_torch.kernels.flash_attention.flash import flash_attention, flash_attention_bwd
 
     _build.build_all(["flash_attention"])
@@ -92,7 +93,7 @@ def main() -> int:
         def library(sdpa=sdpa, qt=qt, kt=kt, vt=vt, dout_t=dout_t):
             return torch.autograd.grad(sdpa, (qt, kt, vt), dout_t, retain_graph=True)
 
-        flops = 5 * 2 * b * hq * s * s * d * (0.5 if causal else 1.0)
+        flops = flash_bwd_cost(b, s, hq, s, hkv, d, causal=causal, itemsize=2)[0]
         row = {"flops": flops}
         for tag, fn in (("kernel", kernel), ("library", library)):
             row[tag] = dict(events_ms=events_ms(torch, fn, lambda: None),

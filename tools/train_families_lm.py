@@ -31,8 +31,8 @@
   ``w_base``, ``w_lora_a``/``w_lora_b`` and ``mu`` among them).
 * M3, the other families, 3 steps each of 2 x 4096 tokens in the
   config's microbatches (cut to divide the batch): hubert-xlarge at full
-  width and 24 of 48 layers (cut for the script's time), zamba2-1.2b
-  (1.17 B) at full width and depth; phi3.5-moe at full
+  width and 12 of 48 layers, zamba2-1.2b at full width and 12 of 38
+  layers (both cut for the script's time); phi3.5-moe at full
   width and 2 of 32 layers (about 16 bytes a parameter with the f32
   moments and accumulators: 2 layers and the embeddings are 2.9 B
   parameters, 46 GB, where 3 would be 67 GB before activations);
@@ -105,33 +105,17 @@ BACK_TO_BACK = 20
 BWD_KERNELS = "wkv_bwd_"
 #: M3: (config, updates, what was cut)
 FAMILIES = (
-    ("hubert-xlarge", {"n_layers": 24},
-     "depth 48 -> 24 layers (the script's time, when phase N joined)"),
-    ("zamba2-1.2b", {}, "none: full width and depth (38 layers)"),
+    ("hubert-xlarge", {"n_layers": 12},
+     "depth 48 -> 24 layers when phase N joined, -> 12 when phase O joined (the script's "
+     "time)"),
+    ("zamba2-1.2b", {"n_layers": 12},
+     "depth 38 -> 19 layers, then 12 (two groups of 6), when phase O joined (the script's "
+     "time)"),
     ("phi3.5-moe-42b-a6.6b", {"n_layers": 2},
      "depth 32 -> 2 layers (the state one card holds: about 16 bytes a parameter)"),
     ("llama-3.2-vision-11b", {"n_layers": 5, "n_cross_layers": 1},
      "depth 40 -> one group of 5 (4 self layers and one cross layer)"),
 )
-
-
-def wkv_bwd_flops(rows: int, T: int, c: int, hd: int, sb: int = 16) -> int:
-    """Operations of the backward, counted from shapes per (row, chunk), in
-    the forward's convention (``chip_smoke.wkv_flops``), for the leanest
-    design known, the kernel's: four state products (dr's and dk's state
-    terms, dv's, G's: 4 x 2*c*hd*hd); over the strictly lower (t, s) pairs,
-    on the diagonal sub-blocks of ``sb`` rows a channel's decay
-    e^(cp_t - cum_s), one subtract and one exponential that the three
-    pairwise sums (A, dr's, dk's) share, and in each sum two multiplies and
-    an add (11 a pair-channel); off them the decay is factored into the
-    operands, so each sum is one multiply-add (6 a pair-channel); B = dy.v
-    and dv's A.dy over the lower triangle with the diagonal (2 per product
-    each); and the bonus, du and dlw terms (6*c*hd)."""
-    pairs = c * (c - 1) // 2
-    diag = (c // sb) * sb * (sb - 1) // 2 + (c % sb) * (c % sb - 1) // 2
-    per_chunk = (8 * c * hd * hd + hd * (11 * diag + 6 * (pairs - diag))
-                 + 2 * 2 * hd * c * (c + 1) // 2 + 6 * c * hd)
-    return rows * (T // c) * per_chunk
 
 
 def _device_ms(torch, fn, kernel: str, fails: list, reps: int = 5) -> dict:
@@ -184,6 +168,7 @@ def wkv_backward_checks(torch, dev, fails: list) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.wkv import wkv, wkv_bwd_plain, wkv_plain
     from repro_torch.kernels.wkv.ref import BWD_TOL, bwd_check_inputs
+    from repro_torch.kernels.costs import wkv_bwd_cost
     from repro_torch.kernels.wkv.wkv import bwd_workspace_floats, wkv_chunked, wkv_chunked_bwd
 
     out: dict = {"cases": [], "max_abs_err": 0.0}
@@ -238,8 +223,7 @@ def wkv_backward_checks(torch, dev, fails: list) -> dict:
         fails.append("M1: three backward calls on the same inputs differ")
     leaves = [t.clone().requires_grad_() for t in (r, k, v, lw, u)]
     yp, _ = wkv_plain(*leaves, chunk=PATH_CHUNK)
-    flops = wkv_bwd_flops(B * H, T, PATH_CHUNK, hd)
-    nbytes = (9 * r.numel() + states.numel() + 2 * u.numel()) * 4
+    flops, nbytes = wkv_bwd_cost(B, T, H, hd, PATH_CHUNK, itemsize=4, u_numel=u.numel())
     t_ops, t_bytes = flops / F32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     ms = [events_ms(torch, kernel)]
     plain_ms = events_ms(torch, lambda: wkv_bwd_plain(r, k, v, lw, u, dy, chunk=PATH_CHUNK),

@@ -29,7 +29,8 @@
   bf16), ``torch.cuda.max_memory_allocated``, the device idle share of one
   step (``core/profiling.py``) and the flash forward and backward device ms
   a step.  Every loss must be finite, and one microbatch's gradients on a
-  fresh state after one step (``torch.autograd.grad`` of ``Model.loss``)
+  fresh state (its bytes and the batch's, ``torch.cuda.memory_allocated``
+  of them alone, recorded for phase O3) after one step (``torch.autograd.grad`` of ``Model.loss``)
   must have a finite, non-zero norm on every parameter leaf,
   ``wq``/``wk``/``wv`` included.  :func:`train_full_width` does the same
   for rwkv6-1.6b in phase M (``tools/train_families_lm.py``).
@@ -56,6 +57,7 @@
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import pathlib
@@ -139,18 +141,12 @@ def _qkv(torch, dev, b, sq, hq, hkv, d, skv, dtype, seed=0):
     return q, k, v, dout
 
 
-def bwd_flops(b: int, sq: int, hq: int, skv: int, d: int, causal: bool) -> float:
-    """Operations of the backward counted from shapes: five products of
-    ``2 * B * Hq * Sq * Skv * D`` (P recomputed, dV, dP, dK, dQ), half of the
-    tiles where causal."""
-    return 5 * 2 * b * hq * sq * skv * d * (0.5 if causal else 1.0)
-
-
 def backward_checks(torch, dev, fails: list) -> dict:
     """L1; appends to ``fails``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.costs import flash_bwd_cost
     from repro_torch.kernels.flash_attention.flash import FlashAttentionFn, flash_attention_bwd
     from repro_torch.kernels.flash_attention.ops import attention_plain
 
@@ -211,8 +207,7 @@ def backward_checks(torch, dev, fails: list) -> dict:
     qt, kt, vt = (t.detach().transpose(1, 2).clone().requires_grad_() for t in (q, k, v))
     sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dout_t = dout.transpose(1, 2)
-    flops = bwd_flops(b, s, hq, s, d, True)
-    nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+    flops, nbytes = flash_bwd_cost(b, s, hq, s, hkv, d, causal=True, itemsize=q.element_size())
 
     def kernel():
         return flash_attention_bwd(q, k, v, od, dout, lse, causal=True)
@@ -233,7 +228,8 @@ def backward_checks(torch, dev, fails: list) -> dict:
         bound_ms=max(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / BF16_FLOP_PER_S > nbytes / HBM_BYTES_PER_S else "bytes",
         flops=flops, bytes=nbytes, tflops=flops / (min(ms) / 1e3) / 1e12,
-        flop_convention="5 products x 2*B*Hq*Sq*Skv*D, halved (causal)",
+        flop_convention="5 products x 2*B*Hq*Sq*Skv*D, halved (causal): "
+                        "kernels/costs.flash_bwd_cost",
         timing="CUDA events around one call, median of 5 (plain: 3) after a warm-up, in turns "
                "kernel, SDPA, SDPA, kernel; ms the kernel alone, plain_ms and library_ms "
                "autograd's backward of attention_plain and of F.scaled_dot_product_attention "
@@ -381,6 +377,7 @@ def train_full_width(torch, dev, fails: list, *, tag: str, config: str, launches
                      f"{cfg.train_microbatches}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()  # what earlier work left allocated
     _build.reset_launches()
     t0 = time.perf_counter()
     result = trainer.run()
@@ -398,7 +395,8 @@ def train_full_width(torch, dev, fails: list, *, tag: str, config: str, launches
         microbatches=micro, steps=TRAIN_STEPS, remat=cfg.remat, losses=result.losses,
         step_ms_each=[s * 1e3 for s in result.step_seconds], step_ms=step_ms,
         tokens_per_s=tokens / (step_ms / 1e3), model_flops=flops, floor_ms=floor_ms,
-        floor_share=floor_ms / step_ms, max_memory_allocated=peak, wall_s=wall,
+        floor_share=floor_ms / step_ms, max_memory_allocated=peak,
+        allocated_at_start=at_start, wall_s=wall,
         launches=launches, launches_want=want,
         launches_a_step={k: launches.get(k, 0) / TRAIN_STEPS for k in want},
         timing="host clock around each Trainer step, ending with the loss read back; "
@@ -413,9 +411,14 @@ def train_full_width(torch, dev, fails: list, *, tag: str, config: str, launches
     # one fresh state and one step (which moves a leaf with a zero init, as
     # rwkv's w_lora_b, off it), then every leaf's gradient on one
     # microbatch, and one more step's device trace
+    gc.collect()  # what the run left in reference cycles goes before the count
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
     state = init_state(model, opt, run_cfg.seed)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ).batch_at(0).items()}
+    # the placed state and batch alone, as the dry-run's argument bytes (phase O3)
+    out["state_batch_allocated"] = torch.cuda.memory_allocated() - before
     step = make_train_step(model, opt, microbatches=micro)
     state, _ = step(state, batch)
     norms, _ = grad_norms(torch, model, state["params"], {k: v[:1] for k, v in batch.items()})
@@ -528,8 +531,6 @@ def kernels_without_backward_refuse(torch, dev, fails: list) -> dict:
 def train_phase(torch, dev, phases=("L1", "L2", "L3", "L4")) -> dict:
     """Phase L; raises :class:`PhaseFailure` after printing everything
     when a check fails."""
-    import gc
-
     fails: list[str] = []
     out: dict = {}
     steps = {"L1": backward_checks, "L2": full_width_training, "L3": restart_on_card,
