@@ -11,7 +11,9 @@ stablelm-1.6b at full width through the flash-attention backward kernel,
 rwkv6-1.6b at full width through the WKV backward kernel, the moe,
 hybrid, vlm and audio families, and stablelm-1.6b data-parallel with
 ZeRO-1 moments on a mesh of stacked ranks, restarted onto a smaller one,
-with gradients through the ring paths.
+with gradients through the ring paths, phi3.5-moe with its expert stacks
+split over the data ranks (FSDP), and the examples (quickstart, batched
+serving, long-context ring) at their defaults.
 
     python3 chip_smoke.py
 
@@ -65,7 +67,25 @@ A. ``flash_attention`` against its plain version on the card at the shapes
    skipped kv tile, and timed beside the plain version and SDPA),
    llama-3.2-vision's cross attention (512 queries on 1601 vision tokens,
    32 heads on 8 of 128, non-causal) and zamba2's shared block (32 heads of
-   64, causal, S 2048).
+   64, causal, S 2048).  Then head dims 16 and 32 (``tools/flash_head_dims.
+   py``: the reduced configs' and the examples', on the 64-wide tile
+   zero-filled past D): forward and backward, bf16 and f32, causal and
+   not, GQA 4 on 2, against the plain version, at two ragged shapes, every
+   shape phase P gives the kernels and 2 x 4096 tokens; and timed (forward
+   and backward, bf16 causal, at P1's training shape, P2's 32-token
+   prefill and 2 x 4096 tokens) beside the plain version and SDPA, with
+   the bound of ``kernels/costs.py``.
+P. The examples (``tools/examples_lm.py``), after phase A, each through
+   its ``main(argv)`` at its defaults: (P1) ``examples/quickstart_torch.
+   py``, reduced llama3-8b (head dim 16) trained 30 steps and its loss
+   held to fall, then 8 tokens served; (P2) ``serve_batched_torch.py``, 12
+   requests on stablelm-1.6b at width 128 (head dim 32), then ``--full``
+   (1.64 B parameters), the engine's counts held; (P3)
+   ``long_context_ring_torch.py`` at ``--seq 512`` and at ``--seq 4096``:
+   ring attention on 8 stacked shards, and zamba2's sequence-parallel loss
+   held within 2e-2 of its local one.  The flash forward's and backward's
+   launches join the summary line's under ``"P"``, and each must have
+   launched there.
 B. Serving llama3-8b at full width and depth (random bf16 weights from
    ``torch.Generator`` seed 0, about 16.1 GB on the card) through
    ``ServingEngine(max_slots=4, max_len=2048)``: 8 requests of 5-2000
@@ -343,15 +363,22 @@ N. Training on a mesh of stacked ranks (``tools/train_mesh_lm.py``),
    through ``gather_pack``/``copy_convert`` (their launches counted) and
    equal to the ``slice`` packer's; (N2) stablelm-1.6b at full width and
    depth through the ``Trainer`` on a ``(2, 4)`` ``("data", "model")``
-   mesh with L2's data, steps 0-1, a checkpoint at step 2 restored onto
-   ``(2, 2)``, steps 2-3: the losses against L2's one-card run, the
-   restarted ones against an uninterrupted run switched without a
-   checkpoint (bitwise expected), the state's stacked layout, ms a step,
-   peak memory, a step's collectives and a traced step's idle share;
+   mesh with L2's data, steps 0-1, the state switched onto ``(2, 2)``
+   through the host, steps 2-3: the losses against L2's one-card run, the
+   state's stacked layout, ms a step, peak memory, a step's collectives
+   and a traced step's idle share; then at 2 layers a checkpoint at step 2
+   restored onto ``(2, 2)`` by a ``Trainer``, its steps 2-3 against the
+   same state switched without a checkpoint (bitwise expected);
    (N3) gradients through ring attention (``comm_packer="cuda"``) and the
    ring-TP MLP at stablelm-1.6b's width, 2 layers, f32, against the
-   local context's.  The flash launches of N2 and N3's ring runs and the
-   pack kernels' of N3 join the summary line's under ``"N"``.
+   local context's; (N4) phi3.5-moe at full width and 2 layers on a
+   ``(2, 16)`` mesh, ``moe_mode="ep"``, 1024 tokens a data rank, 2 steps
+   with its expert stacks split over the data ranks (``fsdp_experts``,
+   each layer's stack pinned to one data rank) and 2 without: losses and
+   the gathered state bitwise
+   equal, ms a step, peak memory and collectives of each.  The flash
+   launches of N2, N3's ring runs and N4 and the pack kernels' of N3 join
+   the summary line's under ``"N"``.
 O. The dry-run against the card (``tools/dryrun_lm.py``), after phase N,
    reading L2's record: (O1) the meta routes of ``flash_attention``,
    ``flash_attention_bwd``, ``wkv_chunked`` and ``wkv_chunked_bwd``
@@ -907,13 +934,35 @@ def mesh_training(torch, dev, kernels: dict, l2: dict) -> dict:
     except train_lm.PhaseFailure as e:
         fail(f"phase N: {e}")
     out["phase_s"] = time.perf_counter() - t0
-    n2, n3 = out["N2"]["launches"], out["N3"]["launches"]
+    runs = [out[n]["launches"] for n in ("N2", "N3", "N4")]
     for name in ("flash_attention", "flash_attention_bwd", "gather_pack", "copy_convert"):
-        add_launches(kernels[name], "N", n2.get(name, 0) + n3.get(name, 0))
+        add_launches(kernels[name], "N", sum(r.get(name, 0) for r in runs))
     for name in ("flash_attention_bwd", "gather_pack", "copy_convert"):
         if not kernels[name]["launches_by_path"]["N"]:
             fail(f"phase N: the mesh paths never launched {name}")
     print(f"phase N took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def examples(torch, dev, kernels: dict) -> dict:
+    """Phase P (``tools/examples_lm.py``): the three examples at their
+    defaults; their launches join the summary line's under ``"P"``."""
+    import examples_lm
+
+    t0 = time.perf_counter()
+    try:
+        out = examples_lm.examples_phase(torch, dev)
+    except RuntimeError as e:
+        fail(f"phase P: {e}")
+    out["phase_s"] = time.perf_counter() - t0
+    # flash_attention_bwd's row is made in phase L, which adds its P launches
+    for path, launches in out["launches"].items():
+        for name, n in launches.items():
+            if name != "flash_attention_bwd":
+                add_launches(kernels[name], "P", n)
+    out["launches_bwd"] = sum(v.get("flash_attention_bwd", 0)
+                              for v in out["launches"].values())
+    print(f"phase P took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2080,14 +2129,20 @@ def main() -> int:
     t_main = time.perf_counter()
     t_lap = [t_main]
     phase_s: dict[str, float] = {}
+    #: the bytes still allocated on the card after each phase: what it
+    #: leaves the later ones (N4's peak needs all but a few GB of the card)
+    phase_allocated: dict[str, int] = {}
 
     def lap(name: str) -> None:
-        """The seconds since the last lap (or the start): printed and recorded
-        under ``phase_s``."""
+        """The seconds since the last lap (or the start) and the bytes still
+        allocated: printed and recorded under ``phase_s`` and
+        ``phase_allocated``."""
         now = time.perf_counter()
         phase_s[name] = now - t_lap[0]
         t_lap[0] = now
-        print(f"chip_smoke: {name} took {phase_s[name]:.1f} s", flush=True)
+        phase_allocated[name] = torch.cuda.memory_allocated()
+        print(f"chip_smoke: {name} took {phase_s[name]:.1f} s, "
+              f"{phase_allocated[name] / 1e9:.3f} GB allocated after it", flush=True)
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -2328,7 +2383,9 @@ def main() -> int:
                "contiguous out; device_ms: torch.profiler device time of the strided call",
     )
     print("stencil27:", json.dumps(kernels["stencil27"]), flush=True)
-    del xp, xp5, outk, xbf, outbf, block, interior, x, xb
+    # views keep their base alive: win and xflat hold x's block set, inp
+    # the last case's xp (4.36 GB that every later phase would carry)
+    del xp, xp5, outk, xbf, outbf, block, interior, x, xb, win, xflat, inp
     torch.cuda.empty_cache()
 
     lap("2 pack and stencil kernels")
@@ -2608,11 +2665,36 @@ def main() -> int:
         library_max_abs_err=sdpa_err, rel_norm_err=rel80, flops=flops,
         flop_convention="4*B*Hq*Sq*Skv*D (non-causal)", bytes=nbytes,
         timing="as the flash entry's: ms, library_ms 20 back-to-back launches / 20; *_single one")
-    print("flash_attention:", json.dumps(kernels["flash_attention"]), flush=True)
     del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    # head dims 16 and 32: the reduced configs' and the examples', on the
+    # 64-wide tile zero-filled past D
+    import flash_head_dims
+
+    try:
+        small_d = flash_head_dims.head_dim_phase(torch, dev)
+    except RuntimeError as e:
+        fail(f"phase A, head dims 16 and 32: {e}")
+    kernels["flash_attention"]["max_abs_err"] = max(worst, small_d["checks"]["fwd_max_abs_err"])
+    small_bwd = {}
+    for d in flash_head_dims.HEAD_DIMS:
+        rows = {tag: small_d["timed"][f"d{d}_{tag}"] for tag in ("path", "long")}
+        kernels["flash_attention"][f"d{d}"] = {
+            tag: dict(shape=row["shape"], causal=True, **row["forward"])
+            for tag, row in rows.items()}
+        small_bwd[f"d{d}"] = {tag: dict(shape=row["shape"], causal=True, **row["backward"])
+                              for tag, row in rows.items()}
+    record["flash_head_dims"] = small_d
+    print("flash_attention:", json.dumps(kernels["flash_attention"]), flush=True)
     torch.cuda.empty_cache()
 
     lap("A")
+    # -- P. the examples at their defaults ------------------------------------
+    record["examples"] = examples(torch, dev, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    lap("P")
     # -- B. serving llama3-8b at full width: the second main path ------------
     record["serving"] = serve_llama(torch, dev, kernels)
     gc.collect()
@@ -2668,6 +2750,10 @@ def main() -> int:
     lap("G")
     # -- L. training: the flash backward, stablelm-1.6b at full width -----------
     record["training"] = training(torch, dev, kernels)
+    kernels["flash_attention_bwd"].update(small_bwd)
+    add_launches(kernels["flash_attention_bwd"], "P", record["examples"]["launches_bwd"])
+    kernels["flash_attention_bwd"]["bwd_rel_l2_d16_d32"] = (
+        small_d["checks"]["bwd_max_rel_l2"])
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2716,13 +2802,14 @@ def main() -> int:
           f"{record['profiler_traces']['min_gap_us']} to {record['profiler_traces']['max_gap_us']} us",
           flush=True)
     record["phase_s"] = phase_s
+    record["phase_allocated"] = phase_allocated
     record["script_s"] = time.perf_counter() - t_main
     print(f"chip_smoke: all phases in {record['script_s']:.1f} s", flush=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: kd[k] for k in (*keys, "launches_by_path", "route_by_dtype",
-                                                      "d80")
+                                                      "d80", "d16", "d32")
                                    if k in kd}
                                   for kd in kernels.values()]}))
     print(nvidia_smi_line())

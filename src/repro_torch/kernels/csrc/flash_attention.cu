@@ -8,7 +8,7 @@
 // / denominator / accumulator in f32, and the output divided by max(l,
 // 1e-30) so a row that sees no key stays finite.  q, k, v and o are read
 // and written through (batch, seq, head) strides in the model layout (B, S,
-// H, D); any Sq/Skv (ragged tiles are masked); D is 64, 80 or 128.
+// H, D); any Sq/Skv (ragged tiles are masked); D is 16, 32, 64, 80 or 128.
 //
 // What bounds it on this card: operations.  Causal attention over S tokens
 // does about 2*H*S*S*D flops (two products, half the tiles) on 4*H*S*D
@@ -69,9 +69,18 @@
 //       code) cost the D = 128 kernel 48 bytes of spills and serialized its
 //       wgmma (ptxas).  A tighter design (m64n80k16 for P V, a
 //       16-column second box) is later work.
+//     - D = 16 and 32 (the reduced configs' and the examples' head dims) run
+//       the 64-wide tile the same way: the tensor maps' global extent is D
+//       (a 32- or 64-byte row, whose strides stay multiples of 16), the one
+//       64-column box reaches past it and TMA fills columns D-63 with zeros
+//       (the box's bytes, zeros included, are what the mbarrier counts); Q
+//       K^T issues 1 or 2 of its 4 k-steps, P V the whole 64 columns, and
+//       only the first D are stored.  A narrower wgmma (m64n16k16,
+//       m64n32k16) would skip the zero columns' work; it is later work.
 // * f32: flash_kernel, the first CUDA-core kernel of the port, unchanged in
 //   its arithmetic (D = 80: 5 accumulator columns a thread, 48.6 KB of
-//   shared memory).  The f32 tolerance (2e-5 against the plain version) cannot
+//   shared memory; D = 16 and 32: 1 and 2).  The f32 tolerance (2e-5
+//   against the plain version) cannot
 //   be met by a bf16 or TF32 tensor-core product; f32 is what the tests and
 //   f32 checks use, not the serving path.  One block per (64-row query
 //   tile, head, batch), K/V tiles of 32 keys in shared memory, scores and
@@ -138,7 +147,9 @@
 //   128-wide tile (S^T and dP^T are BR / 2 registers each a thread).  D =
 //   80 runs the 128-wide tile, columns 80-127 zero-filled by TMA (S^T and
 //   dP^T issue only the k-steps of real columns; dK, dV and dQ store only
-//   columns below 80).  Shared memory 199,760 bytes (D = 64) and 215,120
+//   columns below 80); D = 16 and 32 the 64-wide tile in the same way
+//   (columns D-63 zero, their dQ sums zero and never stored).  Shared
+//   memory 199,760 bytes (the 64-wide tile) and 215,120
 //   (the 128-wide tile), one CTA an SM, 384 threads.  ptxas (sm_90a, CUDA
 //   12.9, -O3): 168 registers at entry (the CTA's 64,512, which setmaxnreg
 //   splits 24 / 240); spill stores of 60 bytes at D = 128, 44 at D = 80
@@ -713,7 +724,7 @@ cudaError_t make_map(CUtensorMap* map, const void* base, int B, int S, int H, in
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// DT: the tile width (64, or 128 for D = 80 and 128); D: the real head dim
+// DT: the tile width (64 for D = 16, 32 and 64, 128 for D = 80 and 128); D: the real head dim
 template <int DT, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
                    int Hq, int Hkv, int Sq, int Skv, Strides qs, Strides ks, Strides vs,
@@ -1605,7 +1616,7 @@ struct Workspace {
   bool split;
 };
 inline long long up256(long long x) { return (x + 255) / 256 * 256; }
-inline int tile_width(int D) { return D == 64 ? 64 : 128; }
+inline int tile_width(int D) { return D <= 64 ? 64 : 128; }
 // the workspace: lse2 and delta (B, Hq, Sq_pad) f32, a counter per (batch,
 // head, query tile), dq_accum (B, Hq, Sq_pad, DT) f32, and with split items
 // (GQA, some query row and key) dK's and dV's partials (B, Hq, Skv_pad, DT)
@@ -1714,6 +1725,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const v
 #define BW_F32(DD)                                                                           \
   launch_f32<DD>(fq, fk, fv, fo, fdo, lse, delta, fdq, fdk, fdv, B, Hq, Hkv, Sq, Skv, s[0], \
                  s[1], s[2], s[3], s[4], s[5], s[6], s[7], scale, causal, st, launched)
+    if (D == 16) return BW_F32(16);
+    if (D == 32) return BW_F32(32);
     if (D == 64) return BW_F32(64);
     if (D == 80) return BW_F32(80);
     if (D == 128) return BW_F32(128);
@@ -1722,6 +1735,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v, const v
 #define BW_TC(DT, DD)                                                                          \
   one::launch<DT, DD>(q, k, v, o, dout, lse, work, dq, dk, dv, B, Hq, Hkv, Sq, Skv, s[0], s[1], \
                       s[2], s[3], s[4], s[5], s[6], s[7], scale, causal, st, launched)
+    if (D == 16) return BW_TC(64, 16);  // the 64-wide tile, zero-filled past D
+    if (D == 32) return BW_TC(64, 32);
     if (D == 64) return BW_TC(64, 64);
     if (D == 80) return BW_TC(128, 80);  // the 128-wide tile, zero-filled past D
     if (D == 128) return BW_TC(128, 128);
@@ -1742,7 +1757,7 @@ extern "C" {
 
 // out (B, Sq, Hq, D) = attention of q (B, Sq, Hq, D) over k, v (B, Skv, Hkv, D),
 // every tensor addressed as base + b*sb + s*ss + h*sh + d (element strides,
-// d contiguous; a unit dim's stride may be given as 0).  D is 64, 80 or 128; Hq
+// d contiguous; a unit dim's stride may be given as 0).  D is 16, 32, 64, 80 or 128; Hq
 // a multiple of Hkv; Sq / 128 and B <= 65535.  f32 runs on the CUDA cores,
 // bf16 on the tensor cores, with every row 16-byte aligned.
 int flash_attention(const void* q, const void* k, const void* v, void* out, void* lse_out,
@@ -1756,6 +1771,8 @@ int flash_attention(const void* q, const void* k, const void* v, void* out, void
   if (B <= 0 || Hq <= 0 || Sq <= 0) return (int)cudaGetLastError();
   const Strides qs{qsb, qss, qsh}, ks{ksb, kss, ksh}, vs{vsb, vss, vsh}, os{osb, oss, osh};
   if (dtype == F32) {
+    if (D == 16) return (int)cc::launch<16>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
+    if (D == 32) return (int)cc::launch<32>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
     if (D == 64) return (int)cc::launch<64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
     if (D == 80) return (int)cc::launch<80>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
     if (D == 128) return (int)cc::launch<128>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
@@ -1765,6 +1782,10 @@ int flash_attention(const void* q, const void* k, const void* v, void* out, void
   if (Skv <= 0) return (int)cudaErrorInvalidValue;  // a tensor map needs a row
   if (!(rows_aligned(q, qs) && rows_aligned(k, ks) && rows_aligned(v, vs) && rows_aligned(out, os)))
     return (int)cudaErrorMisalignedAddress;
+  if (D == 16)  // the 64-wide tile, zero-filled past D
+    return (int)tc::launch<64, 16>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
+  if (D == 32)
+    return (int)tc::launch<64, 32>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
   if (D == 64) return (int)tc::launch<64, 64>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);
   if (D == 80)  // the 128-wide tile, zero-filled past D
     return (int)tc::launch<128, 80>(q, k, v, out, lse, B, Hq, Hkv, Sq, Skv, qs, ks, vs, os, scale, causal, st);

@@ -12,9 +12,9 @@ route is chosen by dtype, never on an error:
   rows a block sharing K/V tiles of 64 keys that TMA loads into a 2-stage
   ring.  Every row of q, k, v and the output must start 16-byte aligned
   (:func:`check_rows_aligned`), and k needs at least one key; the wrapper
-  raises otherwise.  Head dim 80 runs the 128-wide tile: the tensor maps
-  keep the real width, TMA zero-fills the columns past it, and only the
-  first 80 output columns are stored.
+  raises otherwise.  Head dim 80 runs the 128-wide tile, 16 and 32 the
+  64-wide one: the tensor maps keep the real width, TMA zero-fills the
+  columns past it, and only the first D output columns are stored.
 * f32: the CUDA-core kernel (f32 products, ``expf``), because the f32
   tolerance of 2e-5 cannot be met by a bf16 or TF32 tensor-core product.
 
@@ -46,9 +46,11 @@ import torch
 from repro_torch.kernels import _build, costs
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims the kernel is instantiated for (80, hubert-xlarge's, runs the
-#: bf16 route's 128-wide tile with the columns past 80 zero-filled by TMA)
-HEAD_DIMS = (64, 80, 128)
+#: head dims the kernel is instantiated for (the bf16 route runs 80,
+#: hubert-xlarge's, on its 128-wide tile and 16 and 32, the reduced configs'
+#: and the examples', on its 64-wide one, with the columns past D
+#: zero-filled by TMA)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 #: query rows a block of the tensor-core route covers (the grid's y extent
 #: is Sq / BQ, at most 65535)
 BQ = 128

@@ -59,9 +59,11 @@ Every figure is per device:
 * ``n_loops`` is 0 and ``trip_counts`` empty: an eager step has no loop to
   correct; ``xla_flops``/``xla_bytes`` are absent.
 
-A cell the port refuses is recorded ``FAIL`` with its ``.err`` (training
-with ``fsdp_experts``; expert parallelism on a model axis that is not the
-slot count), and the run exits 1, as JAX's does.  Records go to
+A cell the port refuses is recorded ``FAIL`` with its ``.err`` (expert
+parallelism on a model axis that is not the slot count), and the run exits
+1, as JAX's does.  Training with ``fsdp_experts`` (grok-1) takes the
+config's FSDP expert stacks (``train_loop.train_pspecs``), which the mesh step
+holds on their layer's data rank.  Records go to
 ``results/dryrun_torch/``.  ``--reanalyze`` refuses: no HLO is stored to
 read again.  Unlike the JAX module this one sets no ``XLA_FLAGS``.
 """
@@ -93,6 +95,7 @@ from repro_torch.train.train_loop import (
     make_train_step,
     microbatches_of,
     stacked_specs,
+    train_pspecs,
 )
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "results",
@@ -170,12 +173,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: VirtualMesh,
     if shape.kind == "train":
         opt_cfg = OptimizerConfig()
         like = init_state(model, opt_cfg, "meta")
-        # JAX's specs: the config's fsdp_experts too (state_pspecs leaves it off)
-        m = like["opt"]["m"]
-        mspec = shd.zero1_pspecs(m, shd.param_pspecs(m, **pkw), cfg=cfg, data_axes=da,
-                                 mesh=mesh)
-        specs = {"params": shd.param_pspecs(like["params"], **pkw),
-                 "opt": {"m": mspec, "v": mspec, "step": shd.P()}}
+        specs = train_pspecs(cfg, like, mesh, da)
         placed = stacked_specs(specs, like, mesh, da)
         batch = batch_spec(cfg, shape)
         step = _deferred_train_step(model, opt_cfg, ctx, _microbatches(cfg, shape, mesh), specs)

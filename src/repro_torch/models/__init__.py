@@ -1,1 +1,3 @@
-from repro_torch.models.api import Model, build_model  # noqa: F401
+from repro_torch.models.api import Model, batch_spec, build_model, concrete_batch  # noqa: F401
+
+__all__ = ["Model", "batch_spec", "build_model", "concrete_batch"]

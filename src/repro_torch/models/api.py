@@ -19,7 +19,8 @@ serves every family: on the card the attention's backward is the
 hand-written flash backward kernel, the RWKV scan's the WKV backward
 kernel.  ``build_model(cfg, "meta")`` runs every step on meta tensors
 (shapes and dtypes only; the kernels' meta routes), and
-:func:`batch_spec` gives a cell's inputs there (the dry-run).
+:func:`batch_spec` gives a cell's inputs there (the dry-run);
+:func:`concrete_batch` a random batch of the same keys on a real device.
 """
 
 from __future__ import annotations
@@ -141,6 +142,40 @@ def batch_spec(cfg: ModelConfig, shape: ShapeConfig, device: str | torch.device 
     if cfg.family == "vlm":
         spec["vision_emb"] = empty((b, cfg.vision_tokens, cfg.d_vision), torch.bfloat16)
     return spec
+
+
+def concrete_batch(cfg: ModelConfig, shape_or_bs: ShapeConfig | int, seq: int | None = None,
+                   seed: int = 0, *, device: str | torch.device | None = None
+                   ) -> dict[str, torch.Tensor]:
+    """A random batch of :func:`batch_spec`'s keys, shapes and dtypes on
+    ``device`` (None: the card), for a cell's ``shape`` or a batch size and
+    ``seq`` (JAX's ``concrete_batch``): ``tokens`` and ``labels`` uniform
+    in ``[0, vocab_size)``; audio ``frames`` standard normal rounded to bf16
+    and a ``mask`` of ones at 30 % of the positions; vlm ``vision_emb``
+    standard normal in bf16.  Drawn from a ``torch.Generator(seed)`` on the
+    device, so the values are not JAX's."""
+    if isinstance(shape_or_bs, ShapeConfig):
+        b, s = shape_or_bs.global_batch, shape_or_bs.seq_len
+    else:
+        b, s = shape_or_bs, seq
+    dev = resolve_device(device)
+    gen = torch.Generator(dev).manual_seed(seed)
+
+    def tokens():
+        return torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def normal(shp):
+        return torch.randn(shp, generator=gen, device=dev).to(torch.bfloat16)
+
+    if cfg.family == "audio":
+        frames, labels = normal((b, s, cfg.d_vision)), tokens()
+        mask = (torch.rand((b, s), generator=gen, device=dev) < 0.3).to(torch.float32)
+        return {"frames": frames, "labels": labels, "mask": mask}
+    out = {"tokens": tokens(), "labels": tokens()}
+    if cfg.family == "vlm":
+        out["vision_emb"] = normal((b, cfg.vision_tokens, cfg.d_vision))
+    return out
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device | None = None, *,

@@ -20,6 +20,11 @@ data axes onto the moments' layout by the stacked-rank collectives of
 :mod:`repro_torch.core.partitioned` (``ctx.n_parts`` partitions each),
 clipped by the global norm over every rank's shard, AdamW updates each
 rank's shards, and the new parameters are all-gathered over the data axes.
+Parameters split over the data axes on a stacked layer axis (FSDP, JAX's
+``param_pspecs(..., fsdp_experts=True)`` on the slot-stacked expert
+weights) live on their layer's data rank, as ZeRO-1's moments of a split
+layer axis do: each data rank all-gathers them over the data axes before
+its pass, and they are updated where they live and not gathered after.
 """
 
 from __future__ import annotations
@@ -182,6 +187,7 @@ class _Group:
     mspec: tuple
     zero: int | None  # the axis of (*stack, *leaf) ZeRO-1 splits over the data axes
     decay: bool
+    fsdp: bool = False  # the parameters too are split over the data axes (on ``zero``)
 
 
 def _groups(params: Any, specs: TrainState, data_axes: tuple[str, ...]) -> list[_Group]:
@@ -197,12 +203,16 @@ def _groups(params: Any, specs: TrainState, data_axes: tuple[str, ...]) -> list[
     out = []
     for members in found.values():
         i, path, leaf, ps, ms, depth = members[0]
-        if any(a in data_axes for e in ps for a in _names(e)):
-            raise NotImplementedError(f"parameters split over the data axes (FSDP) at {path}")
         zero = next((a for a, e in enumerate(ms) if set(_names(e)) & set(data_axes)), None)
+        split = [a for a, e in enumerate(ps) if set(_names(e)) & set(data_axes)]
+        # FSDP: the data axes on a stacked layer axis, where the moments are
+        # split too (ZeRO-1 adds nothing to a leaf already split over them)
+        if split and (split[0] >= depth or split != [zero]):
+            raise NotImplementedError(f"parameters split over the data axes (FSDP) at {path} "
+                                      f"as {ps}: only on a stacked layer axis")
         stack = shd._stack_sizes(params, path, depth) if depth else ()
         out.append(_Group(tuple(m[0] for m in members), stack, ps, ms, zero,
-                          stacked_ndim(path, leaf) >= 2))
+                          stacked_ndim(path, leaf) >= 2, bool(split)))
     return out
 
 
@@ -273,7 +283,8 @@ def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
     """The step on ``ctx.mesh`` (module docstring), in six stages:
 
     1. each data rank's parameters, gathered over the model axis from its
-       own row of the stacked state;
+       own row of the stacked state (an FSDP leaf also over the data axes,
+       from its owner's row);
     2. its loss and gradients on its rows of the batch (``batch_pspecs``:
        a batch the data axes do not divide is every rank's whole), in
        ``microbatches`` slices, in a context on its row of the mesh (the
@@ -287,7 +298,8 @@ def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
        clip;
     5. AdamW on each rank's moment shard and its slice of the parameters,
        with JAX's decay mask and schedule;
-    6. the new parameter shards all-gathered over the data axes.
+    6. the new parameter shards all-gathered over the data axes (an FSDP
+       leaf written back to its owner, not gathered).
 
     The loss is the mean of the data ranks' losses.  The collectives of
     stages 1 and 2 are logged for one data rank (the last), as a device
@@ -317,11 +329,17 @@ def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
     b1, b2, eps = opt_cfg.beta1, opt_cfg.beta2, opt_cfg.eps
 
     def gathered(p: torch.Tensor, d: int, spec) -> torch.Tensor:
-        """Stage 1 for data rank ``d``: its row's shards, whole."""
-        x = p.reshape(dsize, k, *p.shape[nd + 1:])[d].reshape(*row.axis_sizes, *p.shape[nd + 1:])
+        """Stage 1 for data rank ``d``: its row's shards, whole.  An FSDP
+        leaf (:class:`Pinned`) is one row, its layer's owner's, which the
+        other data ranks all-gather over the data axes."""
+        x = p if isinstance(spec, Pinned) else p.reshape(dsize, k, *p.shape[nd + 1:])[d]
+        x = x.reshape(*row.axis_sizes, *p.shape[nd + 1:])
         whole = _from_stacked(x, row, spec)
-        if transport.OP_LOG is not None and model_axis in _axes_of_spec(spec):
-            transport.log_collective("all-gather", whole[None], k)
+        if transport.OP_LOG is not None:
+            if isinstance(spec, Pinned):
+                transport.log_collective("all-gather", x.reshape(k, *p.shape[nd + 1:]), dsize)
+            if model_axis in _axes_of_spec(spec):
+                transport.log_collective("all-gather", whole[None], k)
         return whole.detach()
 
     def rank_grads(params, d: int, rows: dict) -> tuple[torch.Tensor, list]:
@@ -475,8 +493,8 @@ def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
                 ps = [p_leaves[i] for i in g.ids]
                 ms = [m_leaves[i] for i in g.ids]
                 vs = [v_leaves[i] for i in g.ids]
-                p = join(ps, g, False)
-                if g.zero is not None:
+                p = join(ps, g, g.fsdp)  # FSDP: already each rank's layers
+                if g.zero is not None and not g.fsdp:
                     p = own_slice(p, g.zero)
                 m, v = join(ms, g, pinned), join(vs, g, pinned)
                 m32 = m.float() * b1 + gf * (1 - b1)
@@ -489,10 +507,10 @@ def _mesh_step(model: Model, opt_cfg: OptimizerConfig, ctx: ParallelContext,
                 split(m32, g, ms, pinned)
                 split(v32, g, vs, pinned)
                 del m32, v32
-                if g.zero is not None:
+                if g.zero is not None and not g.fsdp:
                     for axis in reversed(data_axes):
                         new = ring_all_gather(new, mesh, axis, gather_axis=g.zero)
-                split(new, g, ps, False)
+                split(new, g, ps, g.fsdp)
                 del new
             opt["step"] = opt["step"] + 1
         return state, {"grad_norm": gnorm, "lr": lr, "loss": loss}
@@ -525,6 +543,22 @@ def state_pspecs(model: Model, state_shapes: TrainState, mesh,
     mspec = shd.zero1_pspecs(m, shd.param_pspecs(m, **kw), cfg=model.cfg,
                              data_axes=ctx.data_axes, mesh=mesh)
     return {"params": pspec, "opt": {"m": mspec, "v": mspec, "step": shd.P()}}
+
+
+def train_pspecs(cfg: ModelConfig, like: TrainState, mesh: VirtualMesh,
+                 data_axes: tuple[str, ...]) -> TrainState:
+    """JAX's specs of a train state on ``mesh`` (``like``: its shapes):
+    :func:`state_pspecs`'s, with the config's ``fsdp_experts`` too (the
+    expert stacks' layer axis over the data axes), which ``state_pspecs``
+    leaves off as JAX's ``Trainer`` does.  Hand them to
+    :func:`make_train_step` or :class:`Trainer` as ``shardings``."""
+    kw = dict(cfg=cfg, model_axis="model", model_size=mesh.shape["model"],
+              fsdp_experts=cfg.fsdp_experts, data_axes=data_axes, mesh=mesh)
+    m = like["opt"]["m"]
+    mspec = shd.zero1_pspecs(m, shd.param_pspecs(m, **kw), cfg=cfg, data_axes=data_axes,
+                             mesh=mesh)
+    return {"params": shd.param_pspecs(like["params"], **kw),
+            "opt": {"m": mspec, "v": mspec, "step": shd.P()}}
 
 
 @dataclasses.dataclass

@@ -290,11 +290,16 @@ def test_main_writes_jax_record_keys_and_fails_a_refused_cell(tmp_path, monkeypa
     assert "PASS stablelm-1.6b x decode_32k x single" in capsys.readouterr().out
     assert D.ARCH_IDS == J.ARCH_IDS and D.all_cells() == J.all_cells()
     assert len(D.all_cells()) == 31
-    # grok-1 trains with FSDP expert stacks, which the port's mesh step refuses
+    # expert parallelism on a model axis that is not the slot count (16
+    # ranks, 32 slots), which the port refuses where JAX computes a wrong
+    # result; grok-1's FSDP expert stacks train (tests/test_torch_train_fsdp.py)
     with pytest.raises(SystemExit) as e:
-        D.main(["--arch", "grok-1-314b", "--shape", "train_4k", "--mesh", "single"])
+        D.main(["--arch", "phi3.5-moe-42b-a6.6b", "--shape", "prefill_32k", "--mesh", "single",
+                "--set", "cfg.ep_slots=32"])
     assert e.value.code == 1
-    assert "FAIL grok-1-314b x train_4k x single: NotImplementedError" in capsys.readouterr().out
-    assert "FSDP" in (tmp_path / "grok-1-314b.train_4k.single.json.err").read_text()
+    assert ("FAIL phi3.5-moe-42b-a6.6b x prefill_32k x single: ValueError"
+            in capsys.readouterr().out)
+    assert "one expert slot a rank" in (
+        tmp_path / "phi3.5-moe-42b-a6.6b.prefill_32k.single.json.err").read_text()
     with pytest.raises(SystemExit, match="no HLO"):
         D.main(["--reanalyze"])

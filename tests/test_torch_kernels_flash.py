@@ -172,6 +172,20 @@ def test_scale_argument():
                                attention_ref(q * 0.5 / (8 ** -0.5), k, v))
 
 
+def test_every_config_head_dim_is_a_kernel_head_dim():
+    """Every config that attends, at full width and ``reduced()``, has a head
+    dim the CUDA kernel is instantiated for: on the card ``ops.attention``
+    has no other route, so a missing one refuses the whole model there."""
+    from repro_torch.configs.base import all_configs
+    from repro_torch.kernels.flash_attention.flash import HEAD_DIMS
+    dims = {(name, cfg.resolved_head_dim, cfg.reduced().resolved_head_dim)
+            for name, cfg in all_configs().items() if cfg.n_heads}
+    assert len(dims) == 9
+    for name, full, reduced in dims:
+        assert full in HEAD_DIMS and reduced in HEAD_DIMS, (name, full, reduced)
+    assert {16, 32} <= set(HEAD_DIMS)  # the examples' widths (32) and reduced() (16)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -183,7 +197,10 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("shape", [(1, 8, 32, 8, 128), (2, 100, 4, 4, 64), (1, 1000, 32, 8, 128),
-                                   (1, 5, 2, 1, 64)])
+                                   (1, 5, 2, 1, 64),
+                                   # the reduced configs' and the examples' head dims,
+                                   # on the 64-wide tile zero-filled past D
+                                   (2, 100, 4, 2, 16), (1, 300, 8, 4, 32), (8, 32, 4, 2, 16)])
 def test_cuda_kernel_matches_plain_version(cuda, dtype, causal, shape):
     b, s, hq, hkv, d = shape
     g = torch.Generator(cuda).manual_seed(0)
@@ -203,6 +220,9 @@ def test_cuda_kernel_matches_plain_version(cuda, dtype, causal, shape):
     (True, 1, 300, 100, 4, 2, 128),  # Sq > Skv: whole kv tiles masked for the first rows
     (False, 2, 77, 200, 4, 1, 64),  # ragged Sq and Skv, MQA
     (True, 1, 130, 190, 8, 8, 64),  # Sq < Skv: the mask crosses a ragged tile
+    (True, 2, 512, 512, 8, 4, 32),  # the ring example's shape, GQA 8/4
+    (False, 3, 77, 200, 4, 2, 16),  # reduced configs' head dim, ragged, GQA 4/2
+    (True, 1, 2048, 2048, 4, 1, 16),  # long causal rows at D = 16, MQA
 ])
 def test_cuda_tensor_core_route(cuda, causal, b, sq, skv, hq, hkv, d):
     """The bf16 (tensor-core) route against the plain version."""

@@ -24,7 +24,8 @@ PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "tools" / "train_lm.py", ROOT / "examples" / "train_lm_torch.py",
     ROOT / "tools" / "trace_sessions.py", ROOT / "tools" / "time_flash_bwd.py",
     ROOT / "tools" / "train_families_lm.py", ROOT / "tools" / "train_mesh_lm.py",
-    ROOT / "tools" / "dryrun_lm.py"]
+    ROOT / "tools" / "dryrun_lm.py", ROOT / "examples" / "quickstart_torch.py",
+    ROOT / "examples" / "serve_batched_torch.py", ROOT / "examples" / "long_context_ring_torch.py"]
 
 
 def _imported_roots(path: pathlib.Path) -> set[str]:
@@ -78,7 +79,8 @@ def test_port_has_modules_and_smoke_script():
                      "tools/trace_sessions.py", "tools/time_flash_bwd.py",
                      "tools/train_families_lm.py", "tools/train_mesh_lm.py",
                      "src/repro_torch/launch/dryrun.py", "src/repro_torch/kernels/costs.py",
-                     "tools/dryrun_lm.py"):
+                     "tools/dryrun_lm.py", "examples/quickstart_torch.py",
+                     "examples/serve_batched_torch.py", "examples/long_context_ring_torch.py"):
         assert required in names
 
 

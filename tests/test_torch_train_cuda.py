@@ -64,6 +64,13 @@ def _rel(got, want) -> float:
     (2, 300, 200, 8, 4, 64, True, "bfloat16"),       # the same on the tensor cores: ragged
     (1, 77, 130, 4, 1, 128, False, "bfloat16"),      # query and key tiles, GQA
     (1, 70, 0, 4, 2, 64, True, "float32"),           # no key: every row masked
+    # the reduced configs' and the examples' head dims, on the 64-wide tile
+    (8, 32, 32, 4, 2, 16, True, "bfloat16"),         # quickstart's step, GQA 4/2
+    (2, 300, 200, 8, 4, 16, False, "bfloat16"),      # ragged, GQA
+    (2, 512, 512, 8, 4, 32, True, "bfloat16"),
+    (1, 77, 130, 4, 1, 32, True, "bfloat16"),        # ragged, MQA
+    (2, 300, 200, 8, 4, 16, True, "float32"),
+    (1, 77, 130, 4, 2, 32, False, "float32"),
 ])
 def test_flash_backward_matches_plain(cuda, b, sq, skv, hq, hkv, d, causal, dtype):
     td = getattr(torch, dtype)

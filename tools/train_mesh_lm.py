@@ -12,20 +12,23 @@
 * N2, stablelm-1.6b at full width and depth (random bf16 weights from
   seed 0, f32 moments) trains through the ``Trainer`` on a ``(2, 4)``
   ``("data", "model")`` mesh with phase L2's data (2 x 4096 tokens, one
-  sequence a data rank), steps 0-1, a checkpoint at step 2 (the gathered
-  global state, 16.5 GB, under ``build/``, removed after), a ``Trainer``
-  on ``(2, 2)`` restores it through ``reshard_state`` and runs steps 2-3.
+  sequence a data rank), steps 0-1; the state at step 2, gathered to the
+  host, is placed onto ``(2, 2)`` by ``reshard_state`` for steps 2-3.
   Held: (a) step 0's loss within ``LOSS_TOL`` of L2's one-card ``Trainer``
-  on the same weights and data, (b) steps 1-3 likewise, (c) the restarted
-  losses bitwise equal to the uninterrupted run (the ``(2, 4)`` state held
-  in memory at step 2, gathered and re-placed onto ``(2, 2)`` without a
-  checkpoint) or, if not, within ``LOSS_TOL`` with the difference printed,
-  (d) after the first step on each mesh every leaf in the stacked layout of
-  ``state_pspecs`` (its shape, and its replicas equal).  Prints ms a step
-  (median of steps 1-3, host clock ending with the loss read back) beside
-  L2's, the peak memory, the collectives of step 1
-  (``comm_analysis.count_collectives``: ops and wire bytes), and one traced
-  step's device time by kernel and its idle share.
+  on the same weights and data, (b) steps 1-3 likewise, (c) after the
+  first step on each mesh every leaf in the stacked layout of
+  ``state_pspecs`` (its shape, and its replicas equal).  Then the restart
+  through a checkpoint, at ``N2_CKPT_LAYERS`` layers (the full model's
+  16.5 GB checkpoint took most of the phase): steps 0-1 on ``(2, 4)``, a
+  checkpoint at step 2 (the gathered global state, under ``build/``,
+  removed after), a ``Trainer`` on ``(2, 2)`` restores it through
+  ``reshard_state`` and runs steps 2-3; (d) its losses bitwise equal to
+  the same state switched without a checkpoint or, if not, within
+  ``LOSS_TOL`` with the difference printed, and its layouts as in (c).
+  Prints ms a step (median of steps 1-3, host clock ending with the loss
+  read back) beside L2's, the peak memory, the collectives of step 1
+  (``comm_analysis.count_collectives``: ops and wire bytes), and one
+  traced step's device time by kernel and its idle share.
 * N3, gradients through the ring paths: stablelm-1.6b at full width and 2
   layers, in f32 (the flash kernels' CUDA-core route locally, so the bound
   reads the ring paths' order of sums, not bf16 rounding), one sequence of
@@ -36,10 +39,24 @@
   ``GRAD_TOL`` relative L2 of the same loss under the local context; the
   pack kernels must launch in the ring-attention backward.
 
+* N4, parameters split over the data axes (FSDP): phi3.5-moe-42b-a6.6b at
+  full width and 2 of its 32 layers (2.86 B parameters, bf16, f32
+  moments), ``moe_mode="ep"`` on a ``(2, 16)`` mesh (one expert slot a
+  model rank, as ``check_ep_mesh`` requires), synthetic data (one
+  sequence of ``N4_SEQ`` = 1024 tokens a data rank), 2 steps from one
+  state: once with the specs of ``fsdp_experts=True``
+  (``train/train_loop.train_pspecs``: each layer's expert stacks, and
+  their moments, on one data rank, all-gathered over the data ranks
+  before each rank's pass), once without (the expert
+  stacks on every data rank, ZeRO-1 moments).  The losses and the gathered
+  parameters and moments must be bitwise equal (the gradients' sums are
+  rank-ordered either way).  Prints ms a step, the peak memory and the
+  second step's collectives of each.
+
 ``chip_smoke.py`` calls :func:`mesh_phase` after phase M, handing it L2's
 record; alone (it runs L2 first)::
 
-    PYTHONPATH=src python3 tools/train_mesh_lm.py [--phases N1,N2,N3]
+    PYTHONPATH=src python3 tools/train_mesh_lm.py [--phases N1,N2,N3,N4]
 """
 
 from __future__ import annotations
@@ -74,8 +91,14 @@ HOP_SHAPES = {"llama3-8b": (1, TRAIN_SEQ // RING, 8, 128),
               "stablelm-1.6b": (1, TRAIN_SEQ // RING, 32, 64)}
 BIG, SMALL = (2, 4), (2, 2)
 N2_STEPS, N2_SWITCH = 4, 2
+#: layers of N2's restart through a checkpoint
+N2_CKPT_LAYERS = 2
 N3_LAYERS = 2
 PACK_KERNELS = ("gather_pack", "copy_convert")
+N4_ARCH, N4_LAYERS, N4_MESH, N4_STEPS = "phi3.5-moe-42b-a6.6b", 2, (2, 16), 2
+#: N4's tokens a data rank (one sequence): at L2's 4096 the card's peak,
+#: with what the earlier phases hold, came to 77.0 GB of its 79.2
+N4_SEQ = 1024
 
 
 def hop_backward_checks(torch, dev, fails: list) -> dict:
@@ -154,22 +177,76 @@ def _layout_errors(torch, state, mesh, placed, like) -> list[str]:
     return bad
 
 
+def _trainer_run(torch, trainer, seen: dict, tag: str, like, count_at=None):
+    """``trainer.run()`` with its step wrapped: the layout check after its
+    first call, the collective count at call ``count_at``, the last state
+    kept in ``seen[tag + "_state"]``; returns the result, the unwrapped
+    step and the launches of the run."""
+    from repro_torch.core.comm_analysis import count_collectives
+    from repro_torch.kernels import _build
+
+    inner, mesh = trainer.step_fn, trainer.ctx.mesh
+
+    def step(state, batch):
+        i = seen.setdefault(f"{tag}_calls", 0)
+        seen[f"{tag}_calls"] = i + 1
+        if i == count_at:
+            stats = count_collectives(inner, state, batch)
+            state, met = stats.result
+            seen["collectives"] = dict(ops=stats.by_op_counts, wire_bytes=stats.wire_bytes,
+                                       wire_bytes_by_op=stats.by_op_bytes)
+        else:
+            state, met = inner(state, batch)
+        if i == 0:
+            seen[f"{tag}_layout_errors"] = _layout_errors(torch, state, mesh, trainer.placed,
+                                                          like)
+        seen[f"{tag}_state"] = state
+        return state, met
+
+    trainer.step_fn = step
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    return res, inner, dict(_build.LAUNCHES)
+
+
+def _switched_steps(torch, model, opt, ctx, state, batches: list, like) -> dict:
+    """The steps of ``batches`` on ``ctx.mesh`` from a global ``state``
+    placed there (a step timed as the ``Trainer`` times it: host clock,
+    ending with the loss read back); the layout check after the first."""
+    from repro_torch.kernels import _build
+    from repro_torch.train.fault_tolerance import reshard_state
+    from repro_torch.train.train_loop import make_train_step
+
+    step = make_train_step(model, opt, ctx, 1)
+    state = reshard_state(state, ctx.mesh, step.placed)
+    losses, secs, layout = [], [], None
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(met["loss"].item())
+        secs.append(time.perf_counter() - t0)
+        if layout is None:
+            layout = _layout_errors(torch, state, ctx.mesh, step.placed, like)
+    torch.cuda.synchronize()
+    return dict(losses=losses, secs=secs, layout_errors=layout, launches=dict(_build.LAUNCHES))
+
+
 def mesh_training(torch, dev, fails: list, l2: dict) -> dict:
     """N2; appends to ``fails``.  ``l2`` is phase L2's record."""
-    import dataclasses
     import gc
 
     from repro_torch.configs import get_config
     from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
-    from repro_torch.core.comm_analysis import count_collectives
     from repro_torch.core.mesh import make_mesh
     from repro_torch.core.profiling import device_breakdown
     from repro_torch.data.pipeline import SyntheticLM
-    from repro_torch.kernels import _build
     from repro_torch.models import build_model
     from repro_torch.parallel.context import ParallelContext
-    from repro_torch.train.fault_tolerance import reshard_state
-    from repro_torch.train.train_loop import Trainer, gather_state, init_state, make_train_step
+    from repro_torch.train.train_loop import Trainer, gather_state, init_state
 
     cfg = get_config(STABLELM)
     model = build_model(cfg, dev)
@@ -182,135 +259,147 @@ def mesh_training(torch, dev, fails: list, l2: dict) -> dict:
 
     ctx = {m: ParallelContext(mesh=make_mesh(m, ("data", "model"), device=dev))
            for m in (BIG, SMALL)}
-    build = pathlib.Path(__file__).resolve().parents[1] / "build"
-    build.mkdir(exist_ok=True)
-    root = tempfile.mkdtemp(prefix="train_mesh_", dir=build)
-    base = RunConfig(model=cfg, shape=ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
-                     optimizer=opt, steps=N2_SWITCH, log_every=1, checkpoint_dir=root,
-                     checkpoint_every=N2_SWITCH, keep_checkpoints=1, async_checkpoint=False)
+    run = RunConfig(model=cfg, shape=ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                    optimizer=opt, steps=N2_SWITCH, log_every=1)
     out: dict = dict(config=STABLELM, params=cfg.param_count(), seq=TRAIN_SEQ,
                      batch=TRAIN_BATCH, meshes=[list(BIG), list(SMALL)], steps=N2_STEPS,
                      switch_at=N2_SWITCH)
     seen: dict = {}
 
-    def watch(trainer, tag, mesh, count_at=None):
-        """Wrap ``trainer``'s step: the layout check after its first call,
-        the collective count at call ``count_at``, the last state kept."""
-        inner = trainer.step_fn
-
-        def step(state, batch):
-            i = seen.setdefault(f"{tag}_calls", 0)
-            seen[f"{tag}_calls"] = i + 1
-            if i == count_at:
-                stats = count_collectives(inner, state, batch)
-                state, met = stats.result
-                seen["collectives"] = dict(ops=stats.by_op_counts, wire_bytes=stats.wire_bytes,
-                                           wire_bytes_by_op=stats.by_op_bytes)
-            else:
-                state, met = inner(state, batch)
-            if i == 0:
-                seen[f"{tag}_layout_errors"] = _layout_errors(torch, state, mesh,
-                                                              trainer.placed, like)
-            seen[f"{tag}_state"] = state
-            return state, met
-
-        trainer.step_fn = step
-        return inner
-
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        # -- steps 0-1 on (2, 4), the checkpoint at step 2 --------------------
-        first = Trainer(model, base, ctx=ctx[BIG])
-        if first.microbatches != 1:
-            fails.append(f"N2: {first.microbatches} microbatches, want 1 (one sequence a rank)")
-        inner_big = watch(first, "big", ctx[BIG].mesh, count_at=1)
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        res_a = first.run()
-        torch.cuda.synchronize()
-        launches = dict(_build.LAUNCHES)
-        out["run_a_s"] = time.perf_counter() - t0
-        state = seen.pop("big_state")
-        # the uninterrupted run's state at step 2, off the card
-        t0 = time.perf_counter()
-        switched = gather_state(state, ctx[BIG].mesh, first.placed, "cpu")
-        out["gather_s"] = time.perf_counter() - t0
-        # one traced step on (2, 4) (it moves this state on; the copy stays)
-        batch = batch_at(N2_SWITCH)
-        trace = device_breakdown(lambda: inner_big(state, batch), n_cycles=1)
-        out["idle_share"] = trace["idle_share"]
-        out["trace_sessions"] = trace["sessions"]
-        out["busy_ms"] = trace["busy_us_per_cycle"] / 1e3
-        out["window_ms"] = trace["window_us_per_cycle"] / 1e3
-        out["kernels_per_step"] = kernel_device_ms(trace, FLASH_KERNELS)
-        out["top_kernels"] = trace["kernels"][:12]
-        del state, batch, first, inner_big
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # -- the restart onto (2, 2), steps 2-3 ---------------------------------
-        second = Trainer(model, dataclasses.replace(base, steps=N2_STEPS), ctx=ctx[SMALL])
-        watch(second, "small", ctx[SMALL].mesh)
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        res_b = second.run()
-        torch.cuda.synchronize()
-        for k, n in _build.LAUNCHES.items():
-            launches[k] = launches.get(k, 0) + n
-        out["run_b_s"] = time.perf_counter() - t0
-        out["peak_bytes"] = torch.cuda.max_memory_allocated()
-        seen.pop("small_state", None)
-        del second
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # -- the uninterrupted run, switched to (2, 2) without a checkpoint ---------
-        step = make_train_step(model, opt, ctx[SMALL], 1)
-        state = reshard_state(switched, ctx[SMALL].mesh, step.placed)
-        del switched
-        ref = []
-        for i in range(N2_SWITCH, N2_STEPS):
-            state, met = step(state, batch_at(i))
-            ref.append(met["loss"].item())
-        del state, step
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # -- steps 0-1 on (2, 4) through the Trainer -----------------------------
+    first = Trainer(model, run, ctx=ctx[BIG])
+    if first.microbatches != 1:
+        fails.append(f"N2: {first.microbatches} microbatches, want 1 (one sequence a rank)")
+    t0 = time.perf_counter()
+    res_a, inner_big, launches = _trainer_run(torch, first, seen, "big", like, count_at=1)
+    out["run_a_s"] = time.perf_counter() - t0
+    state = seen.pop("big_state")
+    # the state at step 2, off the card
+    t0 = time.perf_counter()
+    switched = gather_state(state, ctx[BIG].mesh, first.placed, "cpu")
+    out["gather_s"] = time.perf_counter() - t0
+    # one traced step on (2, 4) (it moves this state on; the copy stays)
+    batch = batch_at(N2_SWITCH)
+    trace = device_breakdown(lambda: inner_big(state, batch), n_cycles=1)
+    out["idle_share"] = trace["idle_share"]
+    out["trace_sessions"] = trace["sessions"]
+    out["busy_ms"] = trace["busy_us_per_cycle"] / 1e3
+    out["window_ms"] = trace["window_us_per_cycle"] / 1e3
+    out["kernels_per_step"] = kernel_device_ms(trace, FLASH_KERNELS)
+    out["top_kernels"] = trace["kernels"][:12]
+    del state, batch, first, inner_big
     gc.collect()
     torch.cuda.empty_cache()
 
-    losses = res_a.losses + res_b.losses
+    # -- switched onto (2, 2), steps 2-3 ----------------------------------------
+    t0 = time.perf_counter()
+    b = _switched_steps(torch, model, opt, ctx[SMALL], switched,
+                        [batch_at(i) for i in range(N2_SWITCH, N2_STEPS)], like)
+    del switched
+    out["run_b_s"] = time.perf_counter() - t0
+    for k, n in b["launches"].items():
+        launches[k] = launches.get(k, 0) + n
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    losses = res_a.losses + b["losses"]
     l2_losses = l2["losses"][:N2_STEPS]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, l2_losses)]
-    restart_rel = [abs(a - b) / abs(b) for a, b in zip(res_b.losses, ref)]
-    secs = res_a.step_seconds[1:] + res_b.step_seconds
+    secs = res_a.step_seconds[1:] + b["secs"]
     want = {"flash_attention": cfg.n_layers * BIG[0] * N2_STEPS,
             "flash_attention_bwd": 3 * cfg.n_layers * BIG[0] * N2_STEPS}
     out.update(
-        losses=losses, l2_losses=l2_losses, rel_to_l2=rel, restart_losses=res_b.losses,
-        uninterrupted_losses=ref, restart_bitwise=res_b.losses == ref,
-        restart_rel=restart_rel, restarts=res_a.restarts + res_b.restarts,
-        layout_errors={m: seen.get(f"{m}_layout_errors") for m in ("big", "small")},
+        losses=losses, l2_losses=l2_losses, rel_to_l2=rel,
+        layout_errors={"big": seen.get("big_layout_errors"), "small": b["layout_errors"]},
         collectives=seen.get("collectives"), step_ms_each=[s * 1e3 for s in secs],
         step_ms=statistics.median(secs) * 1e3, l2_step_ms=l2["step_ms"],
         launches=launches, launches_want=want,
-        timing="host clock around each Trainer step, ending with the loss read back; step_ms "
-               "the median of steps 1-3 (0-based: one on (2, 4), two on (2, 2))")
+        timing="host clock around each step, ending with the loss read back; step_ms the "
+               "median of steps 1-3 (0-based: one on (2, 4), two on (2, 2))")
     if len(losses) != N2_STEPS or not all(math.isfinite(x) for x in losses):
         fails.append(f"N2: losses {losses}")
     if max(rel, default=math.inf) > LOSS_TOL:
         fails.append(f"N2: losses {losses} against L2's {l2_losses}: relative {rel}")
-    if not out["restart_bitwise"] and max(restart_rel) > LOSS_TOL:
-        fails.append(f"N2: restarted {res_b.losses} against uninterrupted {ref}")
     if any(out["layout_errors"][m] != [] for m in ("big", "small")):
         fails.append(f"N2: leaves off state_pspecs' layout: {out['layout_errors']}")
     if any(launches.get(k, 0) != n for k, n in want.items()):
         fails.append(f"N2: launches {launches}, want {want}")
-    print(f"N2 {STABLELM} on {BIG} restarted onto {SMALL}: {json.dumps(out)}", flush=True)
+    out["restart"] = checkpoint_restart(torch, dev, fails)
+    print(f"N2 {STABLELM} on {BIG} switched onto {SMALL}: {json.dumps(out)}", flush=True)
     print(f"N2 step ms {out['step_ms']:.1f} (L2 {l2['step_ms']:.1f}), peak "
           f"{out['peak_bytes'] / 1e9:.1f} GB, idle share {out['idle_share']:.4f}, restart "
-          f"bitwise {out['restart_bitwise']}, collectives {json.dumps(out['collectives'])}",
+          f"bitwise {out['restart']['bitwise']}, collectives {json.dumps(out['collectives'])}",
           flush=True)
+    return out
+
+
+def checkpoint_restart(torch, dev, fails: list) -> dict:
+    """N2's restart through a checkpoint, at ``N2_CKPT_LAYERS`` layers;
+    appends to ``fails``."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, RunConfig, ShapeConfig
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import build_model
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.train.train_loop import Trainer, gather_state, init_state
+
+    cfg = get_config(STABLELM).with_updates(n_layers=N2_CKPT_LAYERS)
+    model = build_model(cfg, dev)
+    opt = OptimizerConfig()
+    like = init_state(model, opt, "meta")
+    data = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    ctx = {m: ParallelContext(mesh=make_mesh(m, ("data", "model"), device=dev))
+           for m in (BIG, SMALL)}
+    build = pathlib.Path(__file__).resolve().parents[1] / "build"
+    build.mkdir(exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train_mesh_", dir=build)
+    run = RunConfig(model=cfg, shape=ShapeConfig("chip", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                    optimizer=opt, steps=N2_SWITCH, log_every=1, checkpoint_dir=root,
+                    checkpoint_every=N2_SWITCH, keep_checkpoints=1, async_checkpoint=False)
+    out: dict = dict(layers=N2_CKPT_LAYERS, params=cfg.param_count())
+    seen: dict = {}
+    try:
+        t0 = time.perf_counter()
+        first = Trainer(model, run, ctx=ctx[BIG])
+        _trainer_run(torch, first, seen, "big", like)
+        switched = gather_state(seen.pop("big_state"), ctx[BIG].mesh, first.placed, "cpu")
+        out["run_a_s"] = time.perf_counter() - t0
+        del first
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        second = Trainer(model, dataclasses.replace(run, steps=N2_STEPS), ctx=ctx[SMALL])
+        res_b, _, _ = _trainer_run(torch, second, seen, "small", like)
+        out["run_b_s"] = time.perf_counter() - t0
+        seen.pop("small_state", None)
+        del second
+        gc.collect()
+        torch.cuda.empty_cache()
+        ref = _switched_steps(torch, model, opt, ctx[SMALL], switched,
+                              [{k: torch.from_numpy(v).to(dev)
+                                for k, v in data.batch_at(i).items()}
+                               for i in range(N2_SWITCH, N2_STEPS)], like)
+        del switched
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(res_b.losses, ref["losses"])]
+    out.update(restart_losses=res_b.losses, uninterrupted_losses=ref["losses"],
+               bitwise=res_b.losses == ref["losses"], rel=rel,
+               layout_errors={"big": seen.get("big_layout_errors"),
+                              "small": seen.get("small_layout_errors")})
+    if len(res_b.losses) != N2_STEPS - N2_SWITCH or (not out["bitwise"]
+                                                      and max(rel) > LOSS_TOL):
+        fails.append(f"N2 restart: {res_b.losses} against uninterrupted {ref['losses']}")
+    if any(out["layout_errors"][m] != [] for m in ("big", "small")):
+        fails.append(f"N2 restart: leaves off state_pspecs' layout: {out['layout_errors']}")
+    print(f"N2 restart at {N2_CKPT_LAYERS} layers: {json.dumps(out)}", flush=True)
     return out
 
 
@@ -375,7 +464,125 @@ def ring_gradients(torch, dev, fails: list) -> dict:
     return out
 
 
-def mesh_phase(torch, dev, l2: dict, phases=("N1", "N2", "N3")) -> dict:
+def fsdp_training(torch, dev, fails: list) -> dict:
+    """N4; appends to ``fails``."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import OptimizerConfig, ShapeConfig
+    from repro_torch.core.comm_analysis import count_collectives
+    from repro_torch.core.mesh import make_mesh
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.parallel.context import ParallelContext
+    from repro_torch.train.fault_tolerance import Pinned, reshard_state
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_loop import (
+        _spec_leaves,
+        gather_state,
+        init_state,
+        make_train_step,
+        microbatches_of,
+        train_pspecs,
+    )
+
+    base = get_config(N4_ARCH).with_updates(n_layers=N4_LAYERS)
+    opt = OptimizerConfig()
+    mesh = make_mesh(N4_MESH, ("data", "model"), device=dev)
+    ctx = ParallelContext(mesh=mesh, moe_mode="ep")
+    data = SyntheticLM(base, TRAIN_BATCH, N4_SEQ)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in data.batch_at(i).items()}
+               for i in range(N4_STEPS)]
+    out: dict = dict(config=N4_ARCH, layers=N4_LAYERS, params=base.param_count(),
+                     mesh=list(N4_MESH), moe_mode="ep", tokens_a_data_rank=N4_SEQ,
+                     steps=N4_STEPS, runs={})
+    got: dict = {}
+    for fsdp in (True, False):
+        cfg = base.with_updates(fsdp_experts=fsdp)
+        model = build_model(cfg, dev)
+        like = init_state(model, opt, "meta")
+        mb = microbatches_of(cfg, ShapeConfig("chip", N4_SEQ, TRAIN_BATCH, "train"),
+                             N4_MESH[0])
+        step = make_train_step(model, opt, ctx, mb,
+                               shardings=train_pspecs(cfg, like, mesh, ("data",)))
+        pinned = sum(isinstance(sp, Pinned) for sp in _spec_leaves(step.placed["params"]))
+        torch.cuda.synchronize()
+        base_bytes = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        # one initial state for both runs: made on the card from seed 0 (the
+        # flag changes no draw) and placed; the whole copy is freed here
+        state = reshard_state(init_state(model, opt, 0), mesh, step.placed)
+        torch.cuda.synchronize()
+        place_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        losses, secs, coll = [], [], None
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == N4_STEPS - 1:
+                stats = count_collectives(step, state, batch)
+                state, met = stats.result
+                coll = dict(ops=stats.by_op_counts, wire_bytes=stats.wire_bytes,
+                            wire_bytes_by_op=stats.by_op_bytes)
+                del stats  # it holds the state, which the next run's memory needs
+            else:
+                state, met = step(state, batch)
+            losses.append(met["loss"].item())
+            secs.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        run = dict(fsdp=fsdp, microbatches=mb, pinned_param_leaves=pinned, losses=losses,
+                   step_ms_each=[x * 1e3 for x in secs], step_ms=secs[-1] * 1e3,
+                   peak_bytes=torch.cuda.max_memory_allocated() - base_bytes,
+                   peak_bytes_whole=torch.cuda.max_memory_allocated(),
+                   collectives=coll, launches=dict(_build.LAUNCHES), place_s=place_s)
+        out["runs"]["fsdp" if fsdp else "no_fsdp"] = run
+        t0 = time.perf_counter()
+        got[fsdp] = (losses, gather_state(state, mesh, step.placed, "cpu"))
+        run["gather_s"] = time.perf_counter() - t0
+        print(f"N4 {N4_ARCH} x {N4_LAYERS} layers on {N4_MESH} fsdp={fsdp}: "
+              f"{json.dumps(run)}", flush=True)
+        del state, met, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    (la, sa), (lb, sb) = got[True], got[False]
+    t0 = time.perf_counter()
+    same = [torch.equal(a, b) for (_, a), (_, b) in zip(tree_leaves(sa), tree_leaves(sb),
+                                                        strict=True)]
+    out.update(compare_s=time.perf_counter() - t0,
+               losses_bitwise=la == lb, state_bitwise=all(same),
+               leaves=len(same), leaves_differing=same.count(False),
+               launches=out["runs"]["fsdp"]["launches"],
+               timing="host clock around each step ending with the loss read back; step_ms "
+                      "the second step's, which also counts its collectives")
+    del got, sa, sb
+    gc.collect()
+    fsdp_run = out["runs"]["fsdp"]
+    if fsdp_run["pinned_param_leaves"] != 3 * N4_LAYERS:
+        fails.append(f"N4: {fsdp_run['pinned_param_leaves']} pinned parameter leaves, want "
+                     f"{3 * N4_LAYERS} (each layer's expert stacks)")
+    if out["runs"]["no_fsdp"]["pinned_param_leaves"]:
+        fails.append("N4: the run without FSDP pinned parameters")
+    if not (out["losses_bitwise"] and out["state_bitwise"]):
+        fails.append(f"N4: FSDP {la} against {lb}; {out['leaves_differing']} of "
+                     f"{out['leaves']} leaves differ")
+    if not all(math.isfinite(x) for x in la):
+        fails.append(f"N4: losses {la}")
+    gathers = (fsdp_run["collectives"] or {}).get("ops", {}).get("all-gather", 0)
+    plain = (out["runs"]["no_fsdp"]["collectives"] or {}).get("ops", {}).get("all-gather", 0)
+    if gathers - plain != 3 * N4_LAYERS:
+        fails.append(f"N4: {gathers} all-gathers with FSDP, {plain} without: want "
+                     f"{3 * N4_LAYERS} more (each pinned leaf over the data ranks)")
+    print(f"N4 FSDP {out['runs']['fsdp']['step_ms']:.1f} ms a step, peak "
+          f"{fsdp_run['peak_bytes'] / 1e9:.2f} GB; without "
+          f"{out['runs']['no_fsdp']['step_ms']:.1f} ms, peak "
+          f"{out['runs']['no_fsdp']['peak_bytes'] / 1e9:.2f} GB; bitwise: losses "
+          f"{out['losses_bitwise']}, state {out['state_bitwise']}", flush=True)
+    return out
+
+
+def mesh_phase(torch, dev, l2: dict, phases=("N1", "N2", "N3", "N4")) -> dict:
     """Phase N; raises :class:`train_lm.PhaseFailure` after printing
     everything when a check fails."""
     import gc
@@ -383,7 +590,7 @@ def mesh_phase(torch, dev, l2: dict, phases=("N1", "N2", "N3")) -> dict:
     fails: list[str] = []
     out: dict = {}
     steps = {"N1": hop_backward_checks, "N2": lambda t, d, f: mesh_training(t, d, f, l2),
-             "N3": ring_gradients}
+             "N3": ring_gradients, "N4": fsdp_training}
     for name in phases:
         t0 = time.perf_counter()
         out[name] = steps[name](torch, dev, fails)
@@ -401,7 +608,7 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="N1,N2,N3")
+    ap.add_argument("--phases", default="N1,N2,N3,N4")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("train_mesh_lm: torch.cuda.is_available() is False; this needs an NVIDIA GPU",
